@@ -1,17 +1,17 @@
-"""Throughput benchmark — batched solver iterations/s/chip.
+"""Throughput benchmark — batched solver iterations/s on one GPU.
 
 Headline (stdout, ONE JSON line): batched Differential Evolution over 8192
 independent 10-D Rastrigin instances, 64 agents each, 200 generations via
-the fixed-trip scan driver — per-instance solver iterations per second on
-one chip, against the BASELINE.json north star of 1e5 iterations/s/chip.
-(8192 instances saturates one v5e chip; 2048 reaches only ~45% of peak.)
+the fixed-trip scan driver — per-instance solver iterations per second.
 
 ``python bench.py --all`` additionally runs the roofline microbenchmarks
-(measured chip ceilings: HBM stream, VPU cos issue, MXU f32 matmul) and
-every BASELINE.json config scenario, printing each on stderr with achieved
-%-of-measured-peak numbers and a one-line bound diagnosis.
-``--out FILE`` writes the full suite as one JSON artifact
-(BENCH_ALL_r{N}.json in the repo root is the round-stamped record).
+(measured device ceilings: HBM stream, cos throughput, f32 matmul) and
+every BASELINE.json config scenario, printing each on stderr with
+achieved %-of-measured-peak numbers.  ``--out FILE`` writes the full
+suite as one JSON artifact.
+
+The benchmark runs on a GPU only: any other default device, or any failed
+scenario, makes it exit non-zero.
 """
 import json
 import sys
@@ -21,13 +21,12 @@ NORTH_STAR = 1.0e5  # BASELINE.json: >=1e5 batched solver iterations/s/chip
 
 def attach_peaks(out: dict, micro: dict) -> dict:
     """Convert a scenario's analytic traffic/op models into fractions of
-    the MEASURED chip ceilings (not the paper spec), so 'fast' is
+    the MEASURED device ceilings (not the data sheet), so 'fast' is
     falsifiable: pct_hbm_peak ~100 means the scenario streams at the
-    chip's achievable bandwidth; pct_cos_peak ~100 means the VPU
-    transcendental pipe is saturated."""
+    card's achievable bandwidth; pct_cos_peak ~100 means the
+    transcendental throughput is saturated."""
     for key, peak, name in (
         ("model_gbps", micro["stream_gbps"], "pct_hbm_peak"),
-        ("pallas_model_gbps", micro["stream_gbps"], "pallas_pct_hbm_peak"),
         ("model_gtrans_per_sec", micro["cos_gelems_per_sec"], "pct_cos_peak"),
     ):
         if key in out:
@@ -36,13 +35,12 @@ def attach_peaks(out: dict, micro: dict) -> dict:
 
 
 def main():
-    import jax
+    from nlsolver_tpu.utils.compile_cache import enable_compile_cache
+    from nlsolver_tpu.utils.device import (card_name_and_power_limit,
+                                           describe, require_gpu)
 
-    # persistent compile cache (same one the test suite uses): repeat bench
-    # invocations skip the 30-40 s XLA compiles
-    jax.config.update("jax_compilation_cache_dir", "/tmp/nlsolver_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    require_gpu()
+    enable_compile_cache()
 
     from nlsolver_tpu.benches import (
         ALL_BENCHES,
@@ -50,8 +48,10 @@ def main():
         bench_roofline_micro,
     )
 
-    dev = jax.devices()[0]
-    artifact = {"device": f"{dev.platform}:{dev.device_kind}"}
+    device = {**describe(), "nvidia_smi": card_name_and_power_limit()}
+    print(f"# device {json.dumps(device)}", file=sys.stderr)
+    artifact = {"device": device}
+    failed = []
     if "--all" in sys.argv:
         micro = bench_roofline_micro()
         print(f"# {json.dumps(micro)}", file=sys.stderr)
@@ -59,16 +59,17 @@ def main():
         for name, fn in ALL_BENCHES.items():
             try:
                 out = attach_peaks(fn(), micro)
-                print(f"# {json.dumps(out)}", file=sys.stderr)
-                artifact[name] = out
-            except Exception as e:
+            except Exception as e:  # report every scenario, then fail
                 print(f"# {name} FAILED: {e!r}", file=sys.stderr)
                 artifact[name] = {"error": repr(e)}
+                failed.append(name)
+                continue
+            print(f"# {json.dumps(out)}", file=sys.stderr)
+            artifact[name] = out
 
     head = bench_de_batched()
     print(
-        f"# device={dev.platform}:{dev.device_kind} "
-        f"median={head['median_ms']:.2f}ms min={head['min_ms']:.2f}ms; "
+        f"# median={head['median_ms']:.2f}ms min={head['min_ms']:.2f}ms; "
         f"{head['instances']} instances x {head['generations']} DE generations",
         file=sys.stderr,
     )
@@ -77,6 +78,7 @@ def main():
         "value": round(head["iters_per_sec"], 1),
         "unit": "iter/s",
         "vs_baseline": round(head["iters_per_sec"] / NORTH_STAR, 3),
+        "device": device,
     }
     if "--out" in sys.argv:
         artifact["headline"] = {**headline, **head}
@@ -87,6 +89,8 @@ def main():
         with open(path, "w") as f:
             json.dump(artifact, f, indent=1)
         print(f"# wrote {path}", file=sys.stderr)
+    if failed:
+        raise SystemExit(f"failed scenarios: {', '.join(failed)}")
     print(json.dumps(headline))
 
 

@@ -1,13 +1,12 @@
-"""CMA-ES at fleet scale: thousands of independent strategies on one chip.
+"""CMA-ES at fleet scale: thousands of independent strategies on one card.
 
 The reference's CMA-ES (nlsolver.h:4321-4579) never compiled, and its
 eigendecomposition engine (tinyqr's iterated QR, tinyqr.h:317-434) handles
 one matrix at a time.  This framework's fleet driver keeps B strategies
 lane-parallel end-to-end — means [n, B], covariances [n, n, B] — and
 decomposes ALL covariance matrices per generation with the batched
-parallel-order Jacobi eigensolver (38x faster than vmapped
-``jnp.linalg.eigh`` on a v5e; `eigh_method="pallas"` uses the Pallas
-kernel on TPU).
+parallel-order Jacobi eigensolver (`eigh_method="xla"` uses XLA's batched
+``jnp.linalg.eigh`` instead).
 
 Run:  python examples/cmaes_fleet.py
 """

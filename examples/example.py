@@ -1,4 +1,4 @@
-"""Solver tour — the TPU-native counterpart of the reference's example.cpp.
+"""Solver tour — the JAX counterpart of the reference's example.cpp.
 
 The reference demos every solver on the 2-D Rosenbrock from x0 = (-0.5, -0.5)
 (/root/reference/example.cpp); this does the same through this framework's

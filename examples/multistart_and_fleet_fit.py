@@ -6,9 +6,8 @@ NLLS fleet.
    config, reference_test_matrix.tsv) — k keyed starts run as ONE vmapped
    program, so wall-clock is ~one solve.
 2. `fit_fleet` runs thousands of curve fits with the fleet on the lane
-   axis and a selectable linear-solve backend; `solve="qr_pallas"` is the
-   VMEM-resident Pallas least-squares kernel (1.52x the vmapped scalar
-   driver on a v5e — BENCH_NOTES round 4).
+   axis and a selectable linear-solve backend (`solve="cholesky"` on the
+   normal equations, or `solve="qr"` on the augmented system).
 """
 import os
 import sys
@@ -51,7 +50,7 @@ def main():
     def residual(params, y_i):
         return params[0] * jnp.exp(-params[1] * t) - y_i
 
-    solve = "qr_pallas" if jax.default_backend() == "tpu" else "cholesky"
+    solve = "cholesky"
     res = nlsolver_tpu.fit_fleet(
         residual,
         jnp.ones((2, B), jnp.float32),

@@ -2,9 +2,8 @@
 bounded multistart tier.
 
 1. `minimize(layout="batched")` runs thousands of independent PSO swarms
-   (or SANN chains) with the INSTANCE batch on the TPU's 128-lane axis
-   (solvers/pso_batched.py / sann_batched.py) — measured 2.1x the
-   vmapped row drivers at the knee on a v5e, and the engines shard over
+   (or SANN chains) with the INSTANCE batch on the trailing axis
+   (solvers/pso_batched.py / sann_batched.py), and the engines shard over
    a device mesh via `layout="sharded"` (parallel/fleet_sharded.py).
 2. `minimize(..., restarts=k, bounds=...)` samples the extra starts
    inside the given box — the bounded multistart tier that cracks

@@ -1,7 +1,7 @@
 """Root-finder tour — counterpart of the reference's roots.cpp.
 
 Same demo problem f(x) = x^3 - x - 2 on [-4, 8] (real root ~1.5213797),
-all seven finders, then the TPU twist: 100k simultaneous bracketed roots
+all seven finders, then the fleet twist: 100k simultaneous bracketed roots
 in one vmapped program.
 """
 import os

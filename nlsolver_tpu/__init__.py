@@ -1,12 +1,12 @@
-"""nlsolver_tpu — TPU-native nonlinear optimization framework.
+"""nlsolver_tpu — nonlinear optimization framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
-JSzitas/nlsolver (reference mounted at /root/reference): the full solver zoo
+A from-scratch JAX/XLA re-design with the capabilities of
+JSzitas/nlsolver: the full solver zoo
 (Nelder-Mead, DE, PSO, SANN, NM-PSO, GD variants, CGD, BFGS,
 Levenberg-Marquardt, Brent, seven 1-D root finders, CMA-ES), built as pure
 init/step state machines over pytrees so a single implementation runs under
 ``jit`` (one problem), ``vmap`` (thousands of problems per chip) and
-``shard_map`` (populations sharded over a TPU pod slice).
+``shard_map`` (populations and fleets sharded over a device mesh).
 """
 from .api import (
     curve_fit,

@@ -12,7 +12,7 @@ here:
 
     result = nlsolver_tpu.minimize(problem, x0, method="de", key=key)
 
-The TPU-first flagships are reachable through the same entry point via the
+The fleet engines are reachable through the same entry point via the
 ``layout`` switch:
 
     * ``layout="single"`` (default) — one problem instance;
@@ -48,9 +48,8 @@ Root finding (the reference's ``nlsolver::rootfinder`` free functions,
 nlsolver.h:3923-4319) is ``root(fn, lower, upper, method=...)``; nonlinear
 least squares is ``fit`` / ``fit_batched`` / ``curve_fit``
 (re-exported from ``solvers.nlls``) plus ``fit_fleet`` — the batch-minor
-lane fleet with selectable ``solve`` backend (batch-minor Cholesky,
-wavefront QR, or the VMEM-resident Pallas least-squares kernel;
-solvers/nlls_fleet.py).
+lane fleet with selectable ``solve`` backend (batch-minor Cholesky or
+wavefront QR; solvers/nlls_fleet.py).
 """
 from __future__ import annotations
 
@@ -175,10 +174,10 @@ def _multistart(
 ) -> SolverResult:
     """Best-of-``restarts`` meta-driver: the user's x0 plus ``restarts - 1``
     keyed random starts run as ONE vmapped program, reduced by best final
-    value.  The TPU-first answer to multimodal problems the reference's
+    value.  The fleet answer to multimodal problems the reference's
     single trajectory cannot solve (reference_test_matrix.tsv: all of
     Shekel/BukinN6 fail there, /root/reference/test_functions.h:496-524) —
-    extra starts ride idle VPU lanes, so wall-clock is ~one solve.
+    extra starts ride otherwise idle lanes of one program.
 
     Starts are uniform inside ``bounds`` when given, else
     ``x0 + U(-spread, spread)^n``.  Counters in the returned result:

@@ -40,10 +40,9 @@ def with_eval_dtype(fn: Objective, dtype) -> Objective:
     The wrapper casts the query point down to ``dtype`` (typically
     ``jnp.bfloat16``), evaluates, and casts the score back up to the query's
     original dtype, so solver bookkeeping (greedy comparisons, convergence
-    statistics, counters) is unchanged.  On TPU the VPU executes bf16
-    elementwise/transcendental work at twice the f32 lane rate and the
-    evaluation's HBM traffic halves — worthwhile for objective-bound fleets
-    (the batched-DE headline is ~80% objective evaluation, BENCH_NOTES.md).
+    statistics, counters) is unchanged.  The evaluation's memory traffic
+    halves, which can pay for objective-bound fleets (the gain on a GPU is
+    not measured).
 
     Accuracy: bf16 has ~8 significand bits, so scores carry ~2-3 decimal
     digits; convergence thresholds below ~1e-2 of the score's magnitude
@@ -60,7 +59,7 @@ def with_eval_dtype(fn: Objective, dtype) -> Objective:
 def batch_eval(fn: Objective, xs: jax.Array) -> jax.Array:
     """Evaluate fn over a batch of points [B, n] -> [B].
 
-    This is the TPU replacement for every sequential agent/vertex scoring
+    This is the replacement for every sequential agent/vertex scoring
     loop in the reference (e.g. DE nlsolver.h:2423-2425, NM :2184-2186):
     one vmapped call XLA can fuse and tile.
     """

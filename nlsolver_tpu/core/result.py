@@ -1,6 +1,6 @@
 """Solver result / status reporting.
 
-TPU-native counterpart of the reference's ``solver_status`` struct
+The counterpart of the reference's ``solver_status`` struct
 (reference: nlsolver.h:2054-2097).  Instead of a mutable C++ struct with a
 ``print()`` method, the result is an immutable pytree that flows out of
 ``jit``/``vmap``/``shard_map`` unchanged, carrying the same counters

@@ -1,8 +1,8 @@
 """Small numeric helpers shared by all solvers.
 
 These replace the reference's hand-rolled AVX vector math in
-``nlsolver::math`` (nlsolver.h:57-1175): on TPU every one of those kernels is
-a single fused XLA vector op, so the only things worth keeping as named
+``nlsolver::math`` (nlsolver.h:57-1175): under XLA every one of those kernels
+is a single fused vector op, so the only things worth keeping as named
 helpers are the statistical/structural utilities below.
 """
 from __future__ import annotations
@@ -11,8 +11,16 @@ from typing import TypeVar
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 T = TypeVar("T")
+
+# Precision for every matrix product in a solver step.  At default
+# precision a float32 product may run in TF32 on a GPU (a 10-bit
+# mantissa), which breaks steps that rely on exact f32 arithmetic; the
+# global ``jax_default_matmul_precision`` is left alone because user
+# objectives run under it too.
+HIGHEST = lax.Precision.HIGHEST
 
 
 def max_abs(x: jax.Array) -> jax.Array:

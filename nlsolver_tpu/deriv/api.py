@@ -3,7 +3,7 @@
 The reference's gradient solvers accept any ``Grad`` functor with signature
 ``g(f, x, grad_out)`` and default to finite differences
 (``fin_diff``/``fin_diff_h`` adapters, nlsolver.h:2848-2863).  Here the
-provider is a small frozen config choosing autodiff (TPU default — replaces
+provider is a small frozen config choosing autodiff (the default — replaces
 the 4n-objective-eval FD gradient with one backward pass) or the parity FD
 stencils; solvers also accept a user-supplied gradient callable.
 

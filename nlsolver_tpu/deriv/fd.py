@@ -1,13 +1,13 @@
 """Finite-difference derivatives with the reference's stencils.
 
-Re-creation of ``nlsolver::finite_difference`` (nlsolver.h:1383-1518).  On
-TPU the default derivative path is autodiff (``jax.grad``/``jax.hessian``);
+Re-creation of ``nlsolver::finite_difference`` (nlsolver.h:1383-1518).  The
+default derivative path is autodiff (``jax.grad``/``jax.hessian``);
 these stencils exist for parity testing and for objectives that are
 jax-traceable but whose analytic gradients the user wants to avoid trusting.
 
 Unlike the reference's per-dimension scalar loops, all stencil points are
 built as one ``[n_evals, n]`` perturbation batch and scored with a single
-vmapped call — the natural TPU formulation.
+vmapped call.
 
 Gradient accuracy a in {0,1,2,3} uses the 2/4/6/8-point central stencils
 with coefficient tables from nlsolver.h:1390-1398 and

@@ -4,8 +4,7 @@ Re-creation of tinyqr's ``qr_algorithm`` / ``QRSolver`` (tinyqr.h:317-434):
 A_{k+1} = R_k Q_k with eigenvector accumulation, default 25 iterations and
 the same tolerance-based early stop on the off-diagonal norm.  ``eigh``
 dispatches to XLA's ``jnp.linalg.eigh`` by default (the production path for
-CMA-ES); the QR-algorithm path exists for parity and for the Pallas batched
-small-matrix kernel template.
+CMA-ES); the QR-algorithm path exists for parity with the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..core.utils import HIGHEST
 from .givens import qr_givens
 
 
@@ -30,7 +30,8 @@ def eigh_qr(A: jax.Array, max_iter: int = 25, tol: float = 1e-12) -> Eigh:
     def body(state):
         Ak, V, it = state
         q, r = qr_givens(Ak)
-        return (r @ q, V @ q, it + 1)
+        mm = lambda a, b: jnp.matmul(a, b, precision=HIGHEST)
+        return (mm(r, q), mm(V, q), it + 1)
 
     def cond(state):
         Ak, _, it = state
@@ -49,8 +50,6 @@ def eigh(A: jax.Array, method: str = "xla", **kwargs) -> Eigh:
     * ``"xla"`` — ``jnp.linalg.eigh`` (best for one large matrix);
     * ``"jacobi"`` — parallel-order cyclic Jacobi (``linalg.jacobi``):
       the fleet engine for many small matrices, batch-minor or vmapped;
-    * ``"pallas"`` — the Pallas kernel with the same schedule
-      (``ops.eigh_jacobi``), TPU only, ``[n, n, B]`` batch-minor;
     * ``"qr"`` — tinyqr's iterated-QR semantics (parity path).
     """
     if method == "qr":
@@ -59,13 +58,9 @@ def eigh(A: jax.Array, method: str = "xla", **kwargs) -> Eigh:
         from .jacobi import eigh_jacobi
 
         return eigh_jacobi(A, **kwargs)
-    if method == "pallas":
-        from ..ops.eigh_jacobi import eigh_jacobi_pallas
-
-        return eigh_jacobi_pallas(A, **kwargs)
     if method != "xla":
         raise ValueError(
-            f"unknown eigh method {method!r}; one of xla, jacobi, pallas, qr"
+            f"unknown eigh method {method!r}; one of xla, jacobi, qr"
         )
     w, v = jnp.linalg.eigh(A)
     return Eigh(eigenvalues=w, eigenvectors=v)

@@ -4,12 +4,12 @@ Re-creation of tinyqr's core (reference: tinyqr.h:86-139 ``givens_rotation``/
 ``rotate_matrix``, :253-310 ``qr_impl``/``qr_decomposition``) as traceable
 jnp code.  The rotation schedule is static (the (j, i) pairs are Python
 ints at trace time), each rotation is a 2-row matrix op, and the whole
-factorization vmaps over batches — the TPU replacement for tinyqr's
+factorization vmaps over batches — the replacement for tinyqr's
 AVX-specialized row rotations.
 
 For performance-critical sizes ``jnp.linalg.qr`` (XLA's blocked
 Householder) is the default; the Givens path exists for parity with the
-reference algorithm and as the template for the Pallas batched kernel.
+reference algorithm.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from ..core.utils import HIGHEST
 
 
 def givens_rotation(a, b):
@@ -60,40 +62,21 @@ def qr_givens(A: jax.Array) -> QR:
     return QR(Q=Q.T, R=R)
 
 
-def qr(A: jax.Array, method: str = "householder", **kwargs) -> QR:
+def qr(A: jax.Array, method: str = "householder") -> QR:
     """QR with selectable backend: XLA Householder (default), sequential
-    Givens (the reference algorithm), the batched parallel-order
+    Givens (the reference algorithm), or the batched parallel-order
     Sameh-Kuck wavefront (``method="parallel"``, for [m, n, *batch]
-    fleets — linalg/qr_parallel.py), or its VMEM-resident Pallas twin
-    (``method="pallas"``, [m, n, B] batch-minor only —
-    ops/qr_wavefront.py; kwargs: ``tile``, ``interpret``)."""
-    if method != "pallas" and kwargs:
-        # only the pallas backend consumes kwargs; swallowing them here
-        # would silently drop e.g. tile= (advisor finding, round 4)
-        raise TypeError(
-            f"qr(method={method!r}) takes no extra kwargs, got "
-            f"{sorted(kwargs)}; tile=/interpret= apply to method='pallas'"
-        )
+    fleets — linalg/qr_parallel.py)."""
     if method == "givens":
         return qr_givens(A)
     if method == "parallel":
         from .qr_parallel import qr_parallel
 
         return qr_parallel(A)
-    if method == "pallas":
-        from ..ops.qr_wavefront import qr_wavefront_pallas
-
-        if A.ndim != 3:
-            raise ValueError(
-                f"method='pallas' needs a batch-minor [m, n, B] fleet, "
-                f"got {A.shape}"
-            )
-        R, Qm = qr_wavefront_pallas(A, compute_q=True, **kwargs)
-        return QR(Q=Qm, R=R)
     if method != "householder":
         raise ValueError(
             f"unknown qr method {method!r}; one of householder, givens, "
-            f"parallel, pallas"
+            f"parallel"
         )
     q, r = jnp.linalg.qr(A)
     return QR(Q=q, R=r)
@@ -102,4 +85,6 @@ def qr(A: jax.Array, method: str = "householder", **kwargs) -> QR:
 def validate_qr(qr_result: QR, A: jax.Array) -> jax.Array:
     """Max reconstruction error |QR - A| (tinyqr's validate_qr,
     tinyqr.h:218-252, returned instead of printed)."""
-    return jnp.max(jnp.abs(qr_result.Q @ qr_result.R - A))
+    return jnp.max(jnp.abs(
+        jnp.matmul(qr_result.Q, qr_result.R, precision=HIGHEST) - A
+    ))

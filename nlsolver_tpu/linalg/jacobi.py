@@ -1,11 +1,11 @@
 """Parallel-order cyclic Jacobi symmetric eigensolver.
 
 The reference's only heavy linear-algebra engine is tinyqr's iterated-QR
-eigendecomposition (tinyqr.h:317-434), consumed by CMA-ES.  On TPU the
-fleet shape is thousands of small [n, n] covariance matrices per
-generation; XLA's ``jnp.linalg.eigh`` (QDWH-style) is built for one large
-matrix and is slow when vmapped over small ones.  Cyclic Jacobi is the
-hardware-friendly replacement:
+eigendecomposition (tinyqr.h:317-434), consumed by CMA-ES.  The fleet
+shape is thousands of small [n, n] covariance matrices per generation;
+cyclic Jacobi handles them as one batch-wide program (XLA's batched
+``jnp.linalg.eigh`` is the other engine; which is faster on a GPU is
+measured by ``chip_smoke.py``):
 
   * a *round-robin tournament schedule* gives n-1 rounds of n/2 disjoint
     rotations per sweep, so every round updates the whole matrix with a
@@ -13,7 +13,7 @@ hardware-friendly replacement:
     sequential dependency inside a round);
   * every operation is elementwise or a static-permutation gather — under
     ``vmap`` (or with explicit trailing batch dims) the entire sweep is
-    [B]-wide VPU work, no batched LAPACK calls;
+    [B]-wide elementwise work, no batched LAPACK calls;
   * quadratic convergence: ``sweeps=10`` reaches f64 machine precision for
     n <= 32 (tests assert 1e-5 vs ``jnp.linalg.eigh`` per the round-2
     verdict, and typically get much better).
@@ -22,9 +22,7 @@ Arrays may carry arbitrary *trailing* batch dimensions — the repo's
 batch-minor fleet layout ([n, n, B]; CLAUDE.md "performance layouts") —
 and the same code serves single matrices ([n, n]) and ``vmap``.
 
-A Pallas kernel with the identical schedule lives in
-``nlsolver_tpu.ops.eigh_jacobi``; ``linalg.eigh(method="jacobi")``
-dispatches here.
+``linalg.eigh(method="jacobi")`` dispatches here.
 """
 from __future__ import annotations
 

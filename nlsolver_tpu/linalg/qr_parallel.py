@@ -1,7 +1,7 @@
 """Batched parallel-order Givens QR (Sameh-Kuck schedule).
 
 tinyqr's ``qr_impl`` (tinyqr.h:253-283) annihilates subdiagonal entries one
-sequential rotation at a time.  On TPU the fleet shape is thousands of
+sequential rotation at a time.  The fleet shape is thousands of
 small [m, n] matrices (LM normal equations, CMA-ES whitening, NLLS
 Jacobians); the Sameh-Kuck wavefront makes the factorization
 hardware-friendly the same way ``linalg.jacobi`` does for eigh:
@@ -9,7 +9,8 @@ hardware-friendly the same way ``linalg.jacobi`` does for eigh:
   * entry (i, j) (0-based, i > j) is annihilated at stage
     ``k = m - 1 - i + 2 j`` by a rotation of rows (i-1, i); within a stage
     all row pairs are DISJOINT, so each stage is a handful of vectorized
-    whole-row operations — [B]-wide VPU work under the batch-minor layout;
+    whole-row operations — [B]-wide elementwise work under the batch-minor
+    layout;
   * m + 2n - 3 stages total instead of n(2m - n - 1)/2 sequential
     rotations; the schedule is static Python/numpy at trace time;
   * arrays carry arbitrary trailing batch dims ([m, n, *batch] — the

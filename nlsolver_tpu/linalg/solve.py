@@ -3,12 +3,12 @@
 Re-creation of the reference's dense-solve helpers:
   * ``cholesky`` + ``forwardsolve``/``backsolve`` (nlsolver.h:252-294);
   * ``get_update_with_hessian`` — LM's damped-normal-equation solve with a
-    diagonal fast path (nlsolver.h:310-330); on TPU one Cholesky solve
-    covers both branches;
+    diagonal fast path (nlsolver.h:310-330); one Cholesky solve covers
+    both branches;
   * tinyqr's ``back_solve`` / ``lm`` least-squares (tinyqr.h:437-470).
 
 All functions are pure jnp on single matrices; batch with ``vmap`` (used by
-the batched-LM / NLLS paths), or swap in the Pallas batched kernels from
+the batched-LM / NLLS paths), or use the batch-minor solves in
 ``nlsolver_tpu.ops`` for small-matrix fleets.
 """
 from __future__ import annotations
@@ -16,6 +16,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
+
+from ..core.utils import HIGHEST
 
 
 def cholesky(A: jax.Array) -> jax.Array:
@@ -40,10 +42,8 @@ def solve_cholesky(A: jax.Array, b: jax.Array) -> jax.Array:
 
 # Below this order, an unrolled scalar Cholesky beats LAPACK-shaped
 # cho_solve by a wide margin once vmapped: the unrolled graph is pure
-# elementwise ops over the batch (measured on v5e: a vmapped [4096, 2, 2]
-# cho_solve costs ~1 ms per call inside a solver loop — the entire LM fleet
-# per-iteration budget — vs ~30 us unrolled; see ops/smallchol.py for the
-# same idea in batch-minor layout).
+# elementwise ops over the batch (on a GPU not measured; see
+# ops/smallchol.py for the same idea in batch-minor layout).
 _UNROLL_N = 8
 
 
@@ -129,4 +129,6 @@ def damped_solve(H: jax.Array, g: jax.Array, lam, *, diagonal=None) -> jax.Array
 def least_squares(A: jax.Array, y: jax.Array) -> jax.Array:
     """Minimize ||A x - y||_2 via QR (tinyqr's ``lm``, tinyqr.h:460-470)."""
     q, r = jnp.linalg.qr(A)
-    return jsl.solve_triangular(r, q.T @ y, lower=False)
+    return jsl.solve_triangular(
+        r, jnp.matmul(q.T, y, precision=HIGHEST), lower=False
+    )

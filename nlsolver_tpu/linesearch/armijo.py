@@ -13,6 +13,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..core.utils import HIGHEST
+
 C = 0.2
 RHO = 0.9
 MAX_BACKTRACKS = 200
@@ -26,7 +28,7 @@ class ArmijoResult(NamedTuple):
 def armijo(fn, x, f0, g0, direction, alpha0) -> ArmijoResult:
     """Backtrack alpha until f(x + alpha d) <= f0 + alpha * c * <g0, d>."""
     dtype = x.dtype
-    limit = jnp.dot(g0, direction) * C
+    limit = jnp.dot(g0, direction, precision=HIGHEST) * C
 
     def phi(alpha):
         return fn(x + alpha * direction)

@@ -19,6 +19,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..core.utils import HIGHEST
+
 XTOL = 1e-15
 FTOL = 1e-4
 GTOL = 1e-2
@@ -188,7 +190,7 @@ def more_thuente(fn, grad_fn, x, f0, g0, direction, alpha0, alpha_max=STPMAX) ->
     dtype = x.dtype
     stpmax = jnp.asarray(alpha_max, dtype)
     alpha0 = jnp.minimum(jnp.asarray(alpha0, dtype), stpmax)
-    dginit = jnp.dot(g0, direction)
+    dginit = jnp.dot(g0, direction, precision=HIGHEST)
 
     dgtest = FTOL * dginit
     finit = f0
@@ -248,7 +250,7 @@ def more_thuente(fn, grad_fn, x, f0, g0, direction, alpha0, alpha_max=STPMAX) ->
         fv = fn(xt)
         gv = grad_fn(xt)
         nfev = s.nfev + 1
-        dg = jnp.dot(gv, direction)
+        dg = jnp.dot(gv, direction, precision=HIGHEST)
         ftest1 = finit + stp * dgtest
 
         info = jnp.int32(0)
@@ -344,7 +346,7 @@ def more_thuente_fleet(fn_cols, grad_cols, X, f0, G0, D, alpha0) -> MTResult:
     One line search per LANE: the fleet state lives on the trailing axis so
     every scalar of the MINPACK recurrence is a ``[B]`` vector and every
     point is a column of ``X`` — the layout that keeps the whole BFGS fleet
-    on the 128-wide VPU lanes (see solvers/bfgs_fleet.py).
+    on the trailing axis (see solvers/bfgs_fleet.py).
 
     fn_cols:  ``[n, B] -> [B]`` objective on columns.
     grad_cols: ``[n, B] -> [n, B]`` gradients of each column.

@@ -4,11 +4,10 @@ The More-Thuente search (``linesearch/more_thuente.py``, the reference's
 cvsrch, nlsolver.h:1673-1793) is a SEQUENTIAL recurrence: up to maxfev=20
 dependent trials, each one full objective+gradient evaluation whose input
 depends on the previous trial's output.  On a latency-bound fleet (small
-B, cheap objective) that dependency chain IS the floor — the chip idles
-between tiny dependent kernels (BENCH_NOTES "bfgs_batch 1.2% of HBM
-ceiling" diagnosis).
+B, cheap objective) that dependency chain is the floor: the device idles
+between tiny dependent kernels.
 
-The TPU-first redesign: evaluate a STATIC geometric grid of K trial steps
+The latency-bound redesign: evaluate a STATIC geometric grid of K trial steps
 for every lane in ONE batched objective/gradient call — [n, K*B] points,
 K times the lane-parallel work, depth 1 instead of depth <=20 — then
 select per lane:
@@ -22,9 +21,9 @@ select per lane:
      curvature guard fires and the next direction is -g).
 
 This trades evaluation COUNT (always K per iteration) for DEPTH (one
-parallel evaluation), the right trade whenever lanes * K still fits the
-VPU - i.e. exactly the latency-bound regime.  More iterations may be
-needed than with the adaptive search (the grid is not refined), which is
+parallel evaluation), the right trade whenever lanes * K still leaves
+the device underused - i.e. exactly the latency-bound regime.  More
+iterations may be needed than with the adaptive search (the grid is not refined), which is
 why it is a config option, not the default; convergence parity is tested
 in tests/test_linesearch.py.
 """

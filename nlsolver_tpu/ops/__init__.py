@@ -1,14 +1,9 @@
-from .rank2 import (
-    rank2_update_batched,
-    rank2_update_batched_jnp,
-    rank2_update_batched_pallas,
-)
-from .smallchol import solve_spd_batched, solve_spd_batched_pallas
+from .rank2 import rank2_direction_batchminor, rank2_update_batched
+from .smallchol import solve_spd_batched, solve_spd_batchminor
 
 __all__ = [
+    "rank2_direction_batchminor",
     "rank2_update_batched",
-    "rank2_update_batched_jnp",
-    "rank2_update_batched_pallas",
     "solve_spd_batched",
-    "solve_spd_batched_pallas",
+    "solve_spd_batchminor",
 ]

@@ -2,108 +2,50 @@
 
 The reference's O(n^2) scalar loop (``update_inverse_hessian``,
 nlsolver.h:3130-3168, fed by ``hessian_update_inner_loop`` nlsolver.h:232)
-becomes a fused batched tensor contraction: for B problem instances at once
+becomes a fused batched elementwise update: for B problem instances at once
 
     H'_b = H_b - rho_b (s_b (y_b^T H_b) + (H_b y_b) s_b^T)
                + rho_b (1 + rho_b y_b^T H_b y_b) s_b s_b^T
 
-`rank2_update_batched` is the public API; `use_pallas=True` runs the Pallas
-TPU kernel (grid over instance tiles, whole [TB, n, n] blocks in VMEM, all
-contractions on the VPU), otherwise a fused jnp einsum formulation that XLA
-compiles to essentially the same thing.  Numerical equivalence is tested in
-tests/test_ops.py; bench_ops.py measures both on hardware.
+Two layouts: ``rank2_update_batched`` takes the standard ``[B, n, n]``
+stack; ``rank2_direction_batchminor`` keeps the fleet on the trailing axis
+(``[n, n, B]``, the BFGS fleet's layout) and also returns the next search
+direction.  Every contraction is written as a multiply and a reduction, so
+no matrix product (and no TF32 rounding) is involved.
 """
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
+
+from ..core.utils import HIGHEST
 
 
 def rank2_update_reference(H, s, y, rho):
     """Single-instance update (solvers.bfgs.rank2_update formulation)."""
-    Hy = H @ y
-    yHy = jnp.dot(y, Hy)
+    Hy = jnp.matmul(H, y, precision=HIGHEST)
+    yHy = jnp.dot(y, Hy, precision=HIGHEST)
     coef = rho * (1.0 + rho * yHy)
     sym = jnp.outer(s, Hy) + jnp.outer(Hy, s)
     return H - rho * sym + coef * jnp.outer(s, s)
 
 
-def rank2_update_batched_jnp(H, s, y, rho):
+def rank2_update_batched(H, s, y, rho):
     """Fused batched formulation: [B, n, n], [B, n], [B, n], [B]."""
-    Hy = jnp.einsum("bij,bj->bi", H, y)
-    yHy = jnp.einsum("bi,bi->b", y, Hy)
+    Hy = jnp.sum(H * y[:, None, :], axis=2)
+    yHy = jnp.sum(y * Hy, axis=1)
     coef = rho * (1.0 + rho * yHy)
-    sym = jnp.einsum("bi,bj->bij", s, Hy) + jnp.einsum("bi,bj->bij", Hy, s)
-    ss = jnp.einsum("bi,bj->bij", s, s)
+    sym = s[:, :, None] * Hy[:, None, :] + Hy[:, :, None] * s[:, None, :]
+    ss = s[:, :, None] * s[:, None, :]
     return H - rho[:, None, None] * sym + coef[:, None, None] * ss
 
 
-def _kernel(H_ref, s_ref, y_ref, rho_ref, out_ref):
-    H = H_ref[...]          # [TB, n, n]
-    s = s_ref[...]          # [TB, n]
-    y = y_ref[...]
-    rho = rho_ref[...][:, 0]  # [TB, 1] -> [TB] (1-D blocks break Mosaic)
-    Hy = jnp.sum(H * y[:, None, :], axis=2)          # [TB, n]
-    yHy = jnp.sum(y * Hy, axis=1)                    # [TB]
-    coef = (rho * (1.0 + rho * yHy))[:, None, None]
-    r = rho[:, None, None]
-    sym = s[:, :, None] * Hy[:, None, :] + Hy[:, :, None] * s[:, None, :]
-    out_ref[...] = H - r * sym + coef * (s[:, :, None] * s[:, None, :])
+def rank2_direction_batchminor(H, s, y, g, rho, reset):
+    """Batch-minor update fused with the next direction: (H', d' = -H' g).
 
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def rank2_update_batched_pallas(H, s, y, rho, tile: int = 256, interpret: bool = False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, n, _ = H.shape
-    tile = min(tile, B)
-    if B % tile:
-        raise ValueError(f"batch {B} must be divisible by tile {tile}")
-    grid = (B // tile,)
-    return pl.pallas_call(
-        _kernel,
-        out_shape=jax.ShapeDtypeStruct(H.shape, H.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile, n, n), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, n), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, n), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (tile, n, n), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(H, s, y, rho[:, None])
-
-
-def rank2_update_batched(H, s, y, rho, use_pallas: bool = False, **kw):
-    if use_pallas:
-        return rank2_update_batched_pallas(H, s, y, rho, **kw)
-    return rank2_update_batched_jnp(H, s, y, rho)
-
-
-# ---------------------------------------------------------------------------
-# Batch-minor ([n, n, B]) fused update + next-direction kernel.
-#
-# The [TB, n, n] layout above wastes lanes when n << 128; putting the FLEET
-# on the trailing (lane) axis makes every contraction a full-width VPU op
-# regardless of n, and fusing the next search direction d' = -H' g into the
-# same pass reads the O(n^2 B) tensor once instead of twice per BFGS
-# iteration.  ``reset`` lanes (curvature loss / NaN — the reference's
-# self-healing H=I, nlsolver.h:3253-3260) substitute the identity for H
-# *inside* the kernel, so deferred resets cost no extra memory pass.
-# ---------------------------------------------------------------------------
-
-
-def rank2_direction_batchminor_jnp(H, s, y, g, rho, reset):
-    """[n, n, B] reference formulation: returns (H', d' = -H' g).
-
-    H [n,n,B]; s, y, g [n,B]; rho, reset [B] (reset: bool — use identity
-    in place of H before updating).
+    H [n,n,B]; s, y, g [n,B]; rho, reset [B] (reset: bool — use the
+    identity in place of H before updating, the reference's self-healing
+    H=I, nlsolver.h:3253-3260).  Reading H once for both the update and
+    the direction keeps the O(n^2 B) tensor to one pass per iteration.
     """
     n = H.shape[0]
     eye = jnp.eye(n, dtype=H.dtype)[:, :, None]
@@ -117,189 +59,3 @@ def rank2_direction_batchminor_jnp(H, s, y, g, rho, reset):
     )
     d = -jnp.sum(Hn * g[None, :, :], axis=1)               # [n,B]
     return Hn, d
-
-
-def _bm_kernel(H_ref, s_ref, y_ref, g_ref, rho_ref, reset_ref, Hout_ref, dout_ref):
-    H = H_ref[...]              # [n, n, TB]
-    s = s_ref[...]              # [n, TB]
-    y = y_ref[...]
-    g = g_ref[...]
-    rho = rho_ref[...]          # [1, TB]
-    reset = reset_ref[...] > 0  # [1, TB]
-    n = H.shape[0]
-    row = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-    eye = (row == col).astype(H.dtype)[:, :, None]
-    Heff = jnp.where(reset[None, :, :], eye, H)
-    Hy = jnp.sum(Heff * y[None, :, :], axis=1)             # [n, TB]
-    yHy = jnp.sum(y * Hy, axis=0, keepdims=True)           # [1, TB]
-    coef = (rho * (1.0 + rho * yHy))[None, :, :]           # [1, 1, TB]
-    r = rho[None, :, :]
-    sym = s[:, None, :] * Hy[None, :, :] + Hy[:, None, :] * s[None, :, :]
-    Hn = Heff - r * sym + coef * (s[:, None, :] * s[None, :, :])
-    Hout_ref[...] = Hn
-    dout_ref[...] = -jnp.sum(Hn * g[None, :, :], axis=1)
-
-
-def _bm_rowtiled_kernel(
-    H_ref, s_r_ref, s_f_ref, hy_r_ref, hy_f_ref, g_ref, rho_ref, coef_ref,
-    reset_ref, Hout_ref, dout_ref, *, row0
-):
-    """Row-sliced update: this call owns H rows [row0, row0+tr); Hy and the
-    rho(1 + rho yHy) coefficient are precomputed inputs, so every remaining
-    term is row-local (including d' = -H' g, a contraction over the
-    in-block second axis)."""
-    H = H_ref[...]               # [tr, n, TB]
-    s_r = s_r_ref[...]           # [tr, TB] (this slice's rows of s)
-    s_f = s_f_ref[...]           # [n, TB]  (all of s)
-    hy_r = hy_r_ref[...]         # [tr, TB]
-    hy_f = hy_f_ref[...]         # [n, TB]
-    g = g_ref[...]               # [n, TB]
-    rho = rho_ref[...]           # [1, TB]
-    coef = coef_ref[...]         # [1, TB]
-    reset = reset_ref[...] > 0   # [1, TB]
-    tr, n = H.shape[0], H.shape[1]
-    row = jax.lax.broadcasted_iota(jnp.int32, (tr, n), 0) + row0
-    col = jax.lax.broadcasted_iota(jnp.int32, (tr, n), 1)
-    eye = (row == col).astype(H.dtype)[:, :, None]
-    Heff = jnp.where(reset[None, :, :], eye, H)
-    r = rho[None, :, :]
-    sym = s_r[:, None, :] * hy_f[None, :, :] + hy_r[:, None, :] * s_f[None, :, :]
-    Hn = Heff - r * sym + coef[None, :, :] * (s_r[:, None, :] * s_f[None, :, :])
-    Hout_ref[...] = Hn
-    dout_ref[...] = -jnp.sum(Hn * g[None, :, :], axis=1)
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "tile_r", "interpret"))
-def rank2_direction_batchminor_pallas_rowtiled(
-    H, s, y, g, rho, reset, tile: int = 256, tile_r: int = 8,
-    interpret: bool = False
-):
-    """Large-n variant: the n x n Hessian is split into row slices so an
-    [n, n, tile] block never has to fit VMEM (the round-2 verdict's n=128
-    overflow).  Hy / yHy are a cheap first pass (XLA-fused einsum, one
-    extra read of H); each row slice then streams through its own
-    1-D-grid kernel call — a Python loop, NOT a second grid axis, because
-    blocks that tile a leading dim and the lane dim together hang this
-    Mosaic toolchain (CLAUDE.md)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, _, B0 = H.shape
-    tile = min(tile, B0)
-    if n % tile_r:
-        raise ValueError(f"n={n} must divide tile_r={tile_r}")
-    pad = (-B0) % tile
-    if pad:
-        zpad3 = lambda a: jnp.pad(a, ((0, 0), (0, 0), (0, pad)))
-        zpad2 = lambda a: jnp.pad(a, ((0, 0), (0, pad)))
-        H, s, y, g = zpad3(H), zpad2(s), zpad2(y), zpad2(g)
-        rho = jnp.pad(rho, (0, pad))
-        reset = jnp.pad(reset, (0, pad))
-    B = B0 + pad
-    eye = jnp.eye(n, dtype=H.dtype)[:, :, None]
-    Heff = jnp.where(reset[None, None, :], eye, H)
-    Hy = jnp.einsum("ijb,jb->ib", Heff, y)
-    yHy = jnp.einsum("ib,ib->b", y, Hy)
-    coef = rho * (1.0 + rho * yHy)
-
-    grid = (B // tile,)
-    rblk = lambda tr: pl.BlockSpec((tr, tile), lambda j: (0, j),
-                                   memory_space=pltpu.VMEM)
-    lane = lambda: pl.BlockSpec((1, tile), lambda j: (0, j),
-                                memory_space=pltpu.VMEM)
-    hs, ds = [], []
-    for r0 in range(0, n, tile_r):
-        kern = functools.partial(_bm_rowtiled_kernel, row0=r0)
-        Hn_r, d_r = pl.pallas_call(
-            kern,
-            out_shape=(
-                jax.ShapeDtypeStruct((tile_r, n, B), H.dtype),
-                jax.ShapeDtypeStruct((tile_r, B), H.dtype),
-            ),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((tile_r, n, tile), lambda j: (0, 0, j),
-                             memory_space=pltpu.VMEM),
-                rblk(tile_r), rblk(n), rblk(tile_r), rblk(n), rblk(n),
-                lane(), lane(), lane(),
-            ],
-            out_specs=(
-                pl.BlockSpec((tile_r, n, tile), lambda j: (0, 0, j),
-                             memory_space=pltpu.VMEM),
-                rblk(tile_r),
-            ),
-            interpret=interpret,
-        )(
-            H[r0:r0 + tile_r], s[r0:r0 + tile_r], s,
-            Hy[r0:r0 + tile_r], Hy, g, rho[None, :], coef[None, :],
-            reset.astype(jnp.int32)[None, :],
-        )
-        hs.append(Hn_r)
-        ds.append(d_r)
-    Hn = jnp.concatenate(hs, axis=0)
-    d = jnp.concatenate(ds, axis=0)
-    # d rows were computed per row slice against the FULL Hn row slice, so
-    # the assembled [n, B] direction is already complete
-    if pad:
-        return Hn[:, :, :B0], d[:, :B0]
-    return Hn, d
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def rank2_direction_batchminor_pallas(
-    H, s, y, g, rho, reset, tile: int = 512, interpret: bool = False
-):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, _, B = H.shape
-    # keep the [n, n, tile] block (x6 for in/out/temps) inside VMEM;
-    # when even tile=128 cannot fit (n >= ~90), switch to the row-tiled
-    # kernel that splits the Hessian across a second grid axis
-    while tile > 128 and n * n * tile * 4 * 6 > 12 * 2**20:
-        tile //= 2
-    if n * n * tile * 4 * 6 > 12 * 2**20:
-        tile_r = 8 if n % 8 == 0 else 1
-        return rank2_direction_batchminor_pallas_rowtiled(
-            H, s, y, g, rho, reset, tile=min(256, B), tile_r=tile_r,
-            interpret=interpret,
-        )
-    tile = min(tile, B)
-    pad = (-B) % tile
-    if pad:
-        zpad3 = lambda a: jnp.pad(a, ((0, 0), (0, 0), (0, pad)))
-        zpad2 = lambda a: jnp.pad(a, ((0, 0), (0, pad)))
-        H, s, y, g = zpad3(H), zpad2(s), zpad2(y), zpad2(g)
-        rho = jnp.pad(rho, (0, pad))
-        reset = jnp.pad(reset, (0, pad))
-    Bp = B + pad
-    grid = (Bp // tile,)
-    vec = lambda: pl.BlockSpec((n, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-    lane = lambda: pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-    Hn, d = pl.pallas_call(
-        _bm_kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((n, n, Bp), H.dtype),
-            jax.ShapeDtypeStruct((n, Bp), H.dtype),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n, n, tile), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-            vec(), vec(), vec(), lane(), lane(),
-        ],
-        out_specs=(
-            pl.BlockSpec((n, n, tile), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-            vec(),
-        ),
-        interpret=interpret,
-    )(H, s, y, g, rho[None, :], reset.astype(jnp.int32)[None, :])
-    if pad:
-        return Hn[:, :, :B], d[:, :B]
-    return Hn, d
-
-
-def rank2_direction_batchminor(H, s, y, g, rho, reset, use_pallas=False, **kw):
-    if use_pallas:
-        return rank2_direction_batchminor_pallas(H, s, y, g, rho, reset, **kw)
-    return rank2_direction_batchminor_jnp(H, s, y, g, rho, reset)

@@ -1,23 +1,16 @@
 """Batched small-matrix Cholesky solve, batch-minor layout.
 
 The LM / NLLS fleet solves thousands of tiny (n <= ~32) SPD systems per
-step.  XLA's ``jnp.linalg.cholesky`` treats each matrix as a unit of work;
-on TPU the efficient layout is the transpose: put the BATCH on the 128-lane
-axis and unroll the tiny factorization over n — every operation is then a
-[B]-wide vector op on the VPU with zero wasted lanes.
-
-``solve_spd_batched`` takes standard [B, n, n] / [B, n] inputs; internally
-it transposes to batch-minor [n, n, B], runs the unrolled
-Cholesky-Banachiewicz factorization + forward/back substitution, and
-transposes back.  A Pallas variant keeps the whole pipeline in VMEM; the
-plain jnp path already fuses into the same vector code for moderate B.
+step.  ``solve_spd_batchminor`` puts the BATCH on the trailing axis and
+unrolls the tiny Cholesky-Banachiewicz factorization and both triangular
+solves over n, so every operation is one [B]-wide elementwise op that XLA
+fuses.  ``solve_spd_batched`` is the standard-layout ([B, n, n] / [B, n])
+alternative through XLA's batched ``cho_solve``.
 
 (Replaces the reference's per-instance cholesky/forwardsolve/backsolve,
 nlsolver.h:252-294.)
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -58,10 +51,9 @@ def _chol_solve_batchminor(A, b):
 def solve_spd_batchminor(A_bm, b_bm):
     """Layout-native entry: A [n, n, B], b [n, B] -> x [n, B].
 
-    Keep solver state batch-minor end-to-end to use this (measured ~60us for
-    8192 x 8x8 f32 on one v5e chip).  Mixing layouts (transpose-in /
-    transpose-out around the unrolled graph) provokes XLA into pathological
-    strided-gather layouts — hence no [B, n, n] wrapper over this path.
+    Keep solver state batch-minor end-to-end to use this.  Mixing layouts
+    (transpose-in / transpose-out around the unrolled graph) provokes XLA
+    into strided-gather layouts — hence no [B, n, n] wrapper over this path.
     """
     return _chol_solve_batchminor(A_bm, b_bm)
 
@@ -70,8 +62,7 @@ def solve_spd_batchminor(A_bm, b_bm):
 def solve_spd_batched(A, b):
     """Solve B small SPD systems: A [B, n, n], b [B, n] -> [B, n].
 
-    Standard-layout path via vmapped Cholesky (measured ~65-100us for
-    8192 x 8x8 f32 on one v5e chip — XLA's batched cho_solve is solid)."""
+    Standard-layout path via vmapped Cholesky."""
     import jax.scipy.linalg as jsl
 
     def one(Ai, bi):
@@ -79,34 +70,3 @@ def solve_spd_batched(A, b):
         return jsl.cho_solve((c, low), bi)
 
     return jax.vmap(one)(A, b)
-
-
-def _kernel(A_ref, b_ref, out_ref):
-    out_ref[...] = _chol_solve_batchminor(A_ref[...], b_ref[...])
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def solve_spd_batched_pallas(A, b, tile: int = 512, interpret: bool = False):
-    """Pallas variant: inputs [B, n, n]/[B, n]; batch tiled on the lane axis."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, n, _ = A.shape
-    tile = min(tile, B)
-    if B % tile:
-        raise ValueError(f"batch {B} must be divisible by tile {tile}")
-    Am = jnp.moveaxis(A, 0, -1)   # [n, n, B]
-    bm = jnp.moveaxis(b, 0, -1)   # [n, B]
-    grid = (B // tile,)
-    xm = pl.pallas_call(
-        _kernel,
-        out_shape=jax.ShapeDtypeStruct((n, B), A.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n, n, tile), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(Am, bm)
-    return jnp.moveaxis(xm, -1, 0)

@@ -3,7 +3,7 @@ ring migration.
 
 The fully-sharded DE (parallel/de_sharded.py) ``all_gather``s the whole
 [pop, n] agent matrix every generation so any agent can partner with any
-other — communication O(pop * n) per generation over ICI.  The island model
+other — communication O(pop * n) per generation.  The island model
 is the classic lower-communication alternative: each pop shard is an
 independent DE "island" whose partner sampling is LOCAL to the shard, and
 every ``migration_interval`` generations each island sends its best member
@@ -61,7 +61,7 @@ def minimize_islands(
 
     ``sync_interval``: generations per global termination check.  The
     while_loop's cond carries the only dp-axis collective — the one that
-    crosses hosts/DCN when dp spans processes; checking every k
+    crosses hosts when dp spans processes; checking every k
     generations amortizes that latency k-fold at the cost of at most k-1
     frozen (no-op) trailing generations per lane.  Results are bit-
     identical (lanes freeze on their exact termination generation;
@@ -69,9 +69,8 @@ def minimize_islands(
     (tools/two_process_bench.py) shows this knob does NOT rescue Gloo's
     ~11% efficiency there — on CPU the dominant cost is per-collective
     rendezvous of the per-generation POP-axis stats/migration ops, which
-    on real hardware ride intra-host ICI at sub-us; the knob targets the
-    genuine DCN-latency term only (SCALING.md "Measured 2-process
-    overhead").
+    on a GPU host ride NVLink; the knob targets the cross-host latency
+    term only (SCALING.md "Measured 2-process overhead").
 
     ``fused=True`` is the collective diet: ``migration_interval``
     generations run PURELY island-local (zero collectives — verified at

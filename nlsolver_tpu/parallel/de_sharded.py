@@ -1,15 +1,15 @@
-"""Multi-device Differential Evolution: populations sharded over a TPU mesh.
+"""Multi-device Differential Evolution: populations sharded over a mesh.
 
-This is the flagship distributed solver (BASELINE.json: "populations sharded
-across a multi-host TPU pod slice and global best-member selection via
-psum/argmin collectives over ICI").  The same generation step as
+This is the flagship distributed solver (BASELINE.json: populations sharded
+across devices and hosts, global best-member selection via psum/argmin
+collectives).  The same generation step as
 ``solvers.de`` runs as one SPMD program under ``shard_map`` over a
 (dp, pop) mesh:
 
   * ``dp`` axis — independent problem instances (batch);
   * ``pop`` axis — the agent population of each instance, sharded;
   * per generation each pop shard ``all_gather``s the (small) agent matrix
-    and scores over ICI, samples global partner indices for its local
+    and scores, samples global partner indices for its local
     agents, evaluates proposals locally, and greedily updates its shard;
   * termination is evaluated on the gathered scores (identical on every pop
     shard) and the outer ``while_loop`` condition is made globally

@@ -3,12 +3,15 @@
 The reference is a single process by design; scaling this framework across
 hosts is the JAX runtime's job (SURVEY.md §5 "Distributed communication
 backend"): `jax.distributed.initialize` + one global mesh whose dp axis
-spans hosts (collectives ride DCN across slices, ICI within).
+spans hosts.  Within a GPU host the cards are joined all to all by NVLink;
+between hosts collectives cross the network, so the cheap dp axis is the
+one laid across hosts.
 
-Typical pod-slice launcher (same script on every host):
+Typical launcher (same script on every host, one process per host):
 
     from nlsolver_tpu.parallel import distributed, make_mesh
-    distributed.initialize()          # no-op on single host
+    distributed.initialize(coordinator_address="host0:1234",
+                           num_processes=2, process_id=rank)
     mesh = distributed.global_mesh(pop=4)
     # shard_map programs from de_sharded / pso_sharded / nlls_sharded work
     # unchanged: the dp axis now spans all hosts' devices.
@@ -30,9 +33,9 @@ from .mesh import DP_AXIS, POP_AXIS, make_mesh
 def initialize(**kwargs) -> None:
     """Initialize the multi-host runtime.
 
-    Pass coordinator_address/num_processes/process_id explicitly outside
-    TPU pod environments (on TPU pods they come from the metadata server).
-    With explicit kwargs failures propagate; without them a single-process
+    Pass coordinator_address/num_processes/process_id explicitly: nothing
+    on a GPU host announces a cluster.  With explicit kwargs failures
+    propagate; without them a single-process
     run that cannot auto-detect a coordinator is fine and stays local.
     Exercised for real (2 CPU processes over a localhost coordinator) by
     tests/test_distributed.py.
@@ -50,8 +53,8 @@ def global_mesh(dp: Optional[int] = None, pop: Optional[int] = None):
 
     The dp (instance) axis is laid out to span hosts — population
     collectives (all_gather/pmin in de_sharded/pso_sharded) then stay
-    within a host's devices (ICI), while the dp axis only carries the
-    cheap psum termination bit across DCN.
+    within a host's devices (NVLink), while the dp axis only carries the
+    cheap psum termination bit across the network.
     """
     n = len(jax.devices())
     if pop is None:

@@ -1,14 +1,14 @@
 """Dimension-sharded L-BFGS for very large n.
 
 The reference's "big axis" pressure points are population size and problem
-dimension (SURVEY.md §5: the TPU counterpart of sequence parallelism is
+dimension (SURVEY.md §5: the counterpart of sequence parallelism is
 population- and dimension-sharding).  For huge-n smooth problems the n-axis
 itself is sharded over the mesh:
 
   * x, gradient and the [m, n] history rings are split over the ``pop``
     axis (reused as the dimension axis here);
   * the two-loop recursion's only cross-shard operations are inner products
-    — each becomes a local partial dot + ``psum`` over ICI; all axpys stay
+    — each becomes a local partial dot + ``psum``; all axpys stay
     local;
   * the line search evaluates the objective on the sharded point; the
     objective must itself be written shard-locally (it receives this
@@ -29,13 +29,14 @@ from jax import lax, shard_map
 from jax.sharding import PartitionSpec as P
 
 from ..core import SolverResult, make_result
+from ..core.utils import HIGHEST
 from .mesh import POP_AXIS
 
 DIM_AXIS = POP_AXIS  # the mesh's second axis doubles as the dimension axis
 
 
 def _pdot(a, b):
-    return lax.psum(jnp.dot(a, b), DIM_AXIS)
+    return lax.psum(jnp.dot(a, b, precision=HIGHEST), DIM_AXIS)
 
 
 def minimize_dim_sharded(

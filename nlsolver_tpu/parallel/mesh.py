@@ -1,10 +1,12 @@
 """Device-mesh helpers.
 
 The reference is single-threaded by design (README.md:143-144); all
-parallelism here is new TPU-first design (SURVEY.md §2 "Parallelism &
-distributed communication"): problem instances shard over a data-parallel
-axis ("dp") and populations shard over a model-parallel axis ("pop"), with
-global best-member selection via collectives over ICI.
+parallelism here is new design (SURVEY.md §2 "Parallelism & distributed
+communication"): problem instances shard over a data-parallel axis ("dp")
+and populations shard over a second axis ("pop"), with global best-member
+selection via collectives.  On a GPU host every card reaches every other
+over NVLink at the same rate, so the mesh shape follows the algorithm
+(how many instances, how large a population), not a physical topology.
 """
 from __future__ import annotations
 

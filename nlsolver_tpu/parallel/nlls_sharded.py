@@ -5,7 +5,7 @@ runs ``vmap``-ped fits on its shard; the only cross-device traffic is the
 ``psum`` that keeps the outer while_loop trip count globally consistent
 (same masked-lane SPMD driver as de_sharded).  Per-instance data (t, y
 curves) shards with the instances, so arbitrarily large fit fleets scale
-linearly across hosts over DCN with zero gradient traffic.
+linearly across devices and hosts with zero gradient traffic.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Unlike sharded DE (which must ``all_gather`` the agent matrix because every
 agent mixes with random partners), PSO's only cross-shard dependency is the
 swarm-best position plus the spread-based termination statistic.  Round 4
-applies the island-DE collective-diet lesson (BENCH_NOTES): everything is
+applies the island-DE collective-diet lesson: everything is
 PACKED into ONE ``all_gather`` of a [b, p_loc + n + 1] block per
 generation —
 

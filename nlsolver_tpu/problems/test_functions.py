@@ -1,9 +1,9 @@
 """Analytic benchmark objectives with known-minima oracles.
 
-TPU-native re-creation of the reference test-function suite
+Re-creation of the reference test-function suite
 (reference: test_functions.h:50-319).  Each problem is a pure function of a
 vector ``x`` (shape ``[n]``), written in jnp so it traces under
-``jit``/``vmap``/``grad`` and fuses on the VPU.  Where the reference hardcodes
+``jit``/``vmap``/``grad`` and fuses into elementwise code.  Where the reference hardcodes
 2-D forms, the classical n-D generalization is used when one exists (sphere,
 rosenbrock, rastrigin, ackley, styblinski_tang), defaulting to the
 reference's dimension so optima oracles stay valid.

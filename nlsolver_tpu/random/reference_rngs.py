@@ -11,7 +11,7 @@ counter-based ``jax.random`` keys (see ``sampling.py``); these exist for
     state the reference has — SURVEY.md §5).
 
 64-bit integer arithmetic is emulated with uint32 (hi, lo) pairs so the
-generators run under jit/vmap on TPU without ``jax_enable_x64``.  Seeding
+generators run under jit/vmap without ``jax_enable_x64``.  Seeding
 quirks are reproduced faithfully: splitmix starts from 12374563468
 (nlsolver.h:1265), and xoshiro's third word is seeded from
 ``(uint64)splitmix.yield()`` — a float in [0, 1) truncated to ZERO

@@ -1,8 +1,8 @@
 """Sampling utilities built on counter-based ``jax.random`` keys.
 
 The reference threads stateful RNG functors (xorshift/xoshiro/splitmix/...,
-nlsolver.h:1176-1382) by reference through every solver.  The TPU-native
-design replaces them with splittable threefry keys carried in solver state —
+nlsolver.h:1176-1382) by reference through every solver.  This design
+replaces them with splittable threefry keys carried in solver state —
 deterministic under ``jit``/``vmap`` and invariant to sharding layout when
 keys are split per (instance, agent).  Bit-exact re-creations of the
 reference generators (for parity oracles) live in ``reference_rngs.py``.

@@ -17,8 +17,8 @@ Re-creation of the reference's ``BFGS`` class (nlsolver.h:3169-3286):
     over; reproduce it with ``reference_update=True`` if trajectory parity
     is ever needed.
 
-This step vmaps over thousands of problem instances; the batched rank-2
-update and matvec are exactly the shapes the ops/pallas kernels accelerate.
+This step vmaps over thousands of problem instances; solvers/bfgs_fleet.py
+is the batch-minor layout of the same algorithm for large fleets.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core import Bounds, Objective, SolverResult, drive, make_result, signed
+from ..core.utils import HIGHEST
 from ..deriv import Deriv, make_grad
 from ..linesearch import more_thuente
 
@@ -77,8 +78,8 @@ def init(fn: Objective, x0: jax.Array, config: BFGSConfig) -> BFGSState:
 
 def rank2_update(H, s, y, rho, reference_quirk: bool = False):
     """BFGS inverse-Hessian rank-2 update (batched-friendly pure form)."""
-    Hy = H @ y
-    yHy = jnp.dot(y, Hy)
+    Hy = jnp.matmul(H, y, precision=HIGHEST)
+    yHy = jnp.dot(y, Hy, precision=HIGHEST)
     if reference_quirk:
         # nlsolver.h:3143-3163, reproduced with the reference's exact
         # arithmetic order for trajectory parity: denom = (yHy*rho) + 1,
@@ -107,8 +108,8 @@ def step(fn: Objective, state: BFGSState, config: BFGSConfig) -> BFGSState:
     halted = state._replace(done=jnp.asarray(True), converged=hit_tol)
 
     g = state.gradient
-    d = -(state.inv_hessian @ g)
-    phi = jnp.dot(g, d)
+    d = -jnp.matmul(state.inv_hessian, g, precision=HIGHEST)
+    phi = jnp.dot(g, d, precision=HIGHEST)
     need_reset = (
         (phi > 0) | jnp.isnan(phi) | (state.grad_norm > state.prev_grad_norm)
     )
@@ -123,7 +124,7 @@ def step(fn: Objective, state: BFGSState, config: BFGSConfig) -> BFGSState:
     new_norm = jnp.linalg.norm(new_grad)
 
     y = new_grad - g
-    rho = 1.0 / jnp.dot(y, s)
+    rho = 1.0 / jnp.dot(y, s, precision=HIGHEST)
     new_H = rank2_update(H, s, y, rho, config.reference_update)
 
     worked = BFGSState(

@@ -1,21 +1,20 @@
 """Batch-minor BFGS fleet: B independent minimizations as one lane-parallel
 program.
 
-The vmapped ``solvers.bfgs`` path stores the fleet as [B, n] / [B, n, n];
-with n << 128 every contraction over the trailing n wastes most of the
-128-wide TPU vector lanes.  This driver keeps the FLEET on the trailing
-(lane) axis end-to-end — points [n, B], inverse Hessians [n, n, B] — so the
-direction matvec, the More-Thuente recurrence, and the rank-2 update are
-full-width VPU ops for any n (the same layout rule as solvers/de_batched.py
-and ops/smallchol.py).
+The vmapped ``solvers.bfgs`` path stores the fleet as [B, n] / [B, n, n]
+and contracts over the short trailing n.  This driver keeps the FLEET on
+the trailing (lane) axis end-to-end — points [n, B], inverse Hessians
+[n, n, B] — so the direction matvec, the More-Thuente recurrence, and the
+rank-2 update are B-wide elementwise ops for any n (the same layout rule
+as solvers/de_batched.py and ops/smallchol.py).
 
 Algorithm parity with the reference ``BFGS`` (nlsolver.h:3169-3286), with
 one loop rotation: the next search direction d' = -H'g is computed in the
-same pass that applies the rank-2 update (ops/rank2.py batch-minor kernel),
+same pass that applies the rank-2 update (ops/rank2.py batch-minor update),
 so the O(n^2 B) tensor is read once per iteration instead of twice.  The
 curvature self-heal (H=I, d=-g on <g,d> > 0 / NaN / grad-norm increase;
 nlsolver.h:3253-3260) becomes a per-lane ``pending_reset`` flag consumed
-inside the next update kernel — the identity substitution costs no extra
+inside the next update — the identity substitution costs no extra
 memory pass.
 
 Termination per lane on max_iter, ||g|| < eps, |delta ||g||| < eps, or inf
@@ -43,8 +42,6 @@ class BFGSFleetConfig:
     max_iter: int = 100
     grad_eps: float = 5e-3
     alpha: float = 1.0
-    use_pallas: bool = False  # batch-minor Pallas kernel for update+direction
-    pallas_tile: int = 512
     # "more_thuente" (reference cvsrch recurrence, depth <= 20 dependent
     # evaluations) or "speculative" (one batched K-trial grid evaluation
     # per iteration — depth 1; the latency-bound-fleet redesign,
@@ -167,8 +164,6 @@ def step(fn_cols, state: BFGSFleetState, config: BFGSFleetConfig) -> BFGSFleetSt
         new_g,
         rho,
         state.pending_reset,
-        use_pallas=config.use_pallas,
-        **({"tile": config.pallas_tile} if config.use_pallas else {}),
     )
     phi = jnp.sum(new_g * d_raw, axis=0)
     need_reset = (

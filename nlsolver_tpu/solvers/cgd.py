@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core import Bounds, Objective, SolverResult, drive, make_result, signed
+from ..core.utils import HIGHEST
 from ..deriv import Deriv, make_grad
 from ..linesearch import armijo
 
@@ -70,9 +71,9 @@ def step(fn: Objective, state: CGDState, config: CGDConfig) -> CGDState:
     ls = armijo(fn, state.x, f0, state.gradient, state.direction, config.alpha)
     new_x = state.x + ls.alpha * state.direction
 
-    denom = jnp.dot(state.gradient, state.gradient)
+    denom = jnp.dot(state.gradient, state.gradient, precision=HIGHEST)
     new_grad = grad_fn(new_x)
-    beta = jnp.dot(new_grad, new_grad) / denom  # Fletcher-Reeves
+    beta = jnp.dot(new_grad, new_grad, precision=HIGHEST) / denom  # Fletcher-Reeves
     new_dir = beta * state.direction - new_grad
 
     worked = CGDState(

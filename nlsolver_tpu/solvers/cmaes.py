@@ -5,13 +5,12 @@ The reference ships only a non-compiling skeleton
 tinyqr methods and Eigen-style expressions on std::vector; excluded from all
 build targets).  Per SURVEY.md §2 it is a *specification of intent*; this is
 a real implementation of the standard algorithm (Hansen, "The CMA Evolution
-Strategy: A Tutorial", arXiv:1604.00772), TPU-first:
+Strategy: A Tutorial", arXiv:1604.00772):
 
   * the population is one ``[lambda, n]`` matrix; sampling, ranking and the
-    rank-mu update are batched matrix ops on the MXU;
+    rank-mu update are matrix products at ``Precision.HIGHEST``;
   * the eigendecomposition C = B diag(D^2) B^T uses ``jnp.linalg.eigh``
-    (the reference's tinyqr iterated-QR eigensolver's role; a Pallas batched
-    QR/eigh path can be swapped in behind ``linalg.eigh``);
+    (the reference's tinyqr iterated-QR eigensolver's role);
   * default hyperparameters follow the tutorial: lambda = 4 + 3 ln n,
     mu = lambda/2 with log-weights, standard cc/cs/c1/cmu/damps.
 
@@ -48,6 +47,7 @@ from ..core import (
     make_result,
     signed,
 )
+from ..core.utils import HIGHEST
 
 
 @dataclass(frozen=True)
@@ -70,8 +70,8 @@ class CMAESConfig:
     # "xla" (jnp.linalg.eigh — best single-instance) or "jacobi" (the
     # batched parallel-order Jacobi, linalg/jacobi.py — use when this
     # solver is vmapped over many instances: XLA's batched eigh is the
-    # many-small-matrix worst case, 25-40x slower on a v5e; for large
-    # fleets prefer solvers/cmaes_fleet.py outright)
+    # many-small-matrix case; for large fleets prefer
+    # solvers/cmaes_fleet.py outright)
     eigh_method: str = "xla"
 
 
@@ -174,7 +174,7 @@ def step(
 
     key, k_z = jax.random.split(state.key)
     z = jax.random.normal(k_z, (lam, n), dtype)            # [lam, n]
-    y = (z * D[None, :]) @ B.T                             # ~ N(0, C)
+    y = jnp.matmul(z * D[None, :], B.T, precision=HIGHEST)  # ~ N(0, C)
     xs = state.mean[None, :] + state.sigma * y
     if bounds is not None:
         # projection repair: clamp into the box and let the repaired steps
@@ -186,11 +186,13 @@ def step(
 
     order = jnp.argsort(values)
     top = order[:mu]
-    y_w = weights @ y[top]                                 # [n] weighted step
+    y_w = jnp.matmul(weights, y[top], precision=HIGHEST)   # [n] weighted step
     new_mean = state.mean + state.sigma * y_w
 
     # step-size path: C^{-1/2} y_w = B D^-1 B^T y_w
-    c_inv_sqrt_yw = B @ ((B.T @ y_w) / D)
+    c_inv_sqrt_yw = jnp.matmul(
+        B, jnp.matmul(B.T, y_w, precision=HIGHEST) / D, precision=HIGHEST
+    )
     p_sigma = (1 - cs) * state.p_sigma + jnp.sqrt(
         cs * (2 - cs) * mu_eff
     ) * c_inv_sqrt_yw
@@ -215,7 +217,9 @@ def step(
     ) < (1.4 + 2 / (n + 1))
     p_c = (1 - cc) * state.p_c + hsig * jnp.sqrt(cc * (2 - cc) * mu_eff) * y_w
     rank1 = jnp.outer(p_c, p_c)
-    rank_mu = (y[top] * weights[:, None]).T @ y[top]
+    rank_mu = jnp.matmul(
+        (y[top] * weights[:, None]).T, y[top], precision=HIGHEST
+    )
     delta_hsig = (1 - hsig) * cc * (2 - cc)
     C = (
         (1 - c1 - cmu) * state.C

@@ -7,14 +7,14 @@ at (thousands of tiny matrices).  This driver keeps the FLEET on the
 trailing (lane) axis end-to-end — means [n, B], covariances [n, n, B],
 populations [n, lam, B] — the repo's batch-minor layout rule
 (solvers/bfgs_fleet.py, ops/smallchol.py), and plugs in the batched
-parallel-order Jacobi eigensolver (``linalg.jacobi`` / the Pallas kernel
-``ops.eigh_jacobi``) where the reference uses tinyqr's iterated QR
+parallel-order Jacobi eigensolver (``linalg.jacobi``) or XLA's batched
+``eigh`` where the reference uses tinyqr's iterated QR
 (tinyqr.h:317-434 via nlsolver.h:4539).
 
 Every other update is elementwise over the lanes; the n-sized
 contractions (sampling y = B D z, C^{-1/2} y_w, the rank-mu update) are
-unrolled over the small n/mu axes into full-width VPU FMAs instead of
-B tiny MXU matmuls.
+unrolled over the small n/mu axes into B-wide elementwise FMAs instead
+of B tiny matrix products.
 
 Algorithm identical to ``solvers.cmaes`` (Hansen tutorial, arXiv:1604.00772)
 including projection-repair bounds, the stagnation-gated restart variance
@@ -46,16 +46,14 @@ class CMAESFleetConfig:
     kick_tol: float = 1e-6
     kick_patience: int = 10
     # eigensolver for C = B D^2 B^T: "jacobi" (batched parallel-order
-    # Jacobi, linalg.jacobi), "pallas" (ops.eigh_jacobi kernel, TPU only),
-    # "xla" (vmapped jnp.linalg.eigh — the baseline the others beat)
+    # Jacobi, linalg.jacobi) or "xla" (batched jnp.linalg.eigh)
     eigh_method: str = "jacobi"
     sweeps: int = 8
-    pallas_tile: int = 128
     # Hansen's lazy eigendecomposition (tutorial code's `eigeneval` gating):
     # recompute B, D every k generations and sample from the stale basis in
-    # between — C itself accumulates every generation.  The
-    # eigendecomposition dominates the fleet step (~95% with the Pallas
-    # kernel), so throughput scales almost linearly with this interval;
+    # between — C itself accumulates every generation.  Where the
+    # eigendecomposition dominates the fleet step, throughput scales almost
+    # linearly with this interval (its share on a GPU: chip_smoke.py);
     # the tutorial's guidance is ~1/(c1+cmu)/n/10 generations of staleness
     # being statistically invisible.  1 = recompute every generation
     # (bit-identical to the eager path).  Two staleness consequences at
@@ -72,8 +70,8 @@ class CMAESFleetConfig:
     #   C' = (prod a_i) C + sum_i (prod_{j>i} a_j)(c1 p_c p_c^T + cmu sum_l w_l y_l y_l^T)
     # — mathematically identical to the eager recurrence (f32 roundoff;
     # parity-tested), with per-generation HBM traffic dropping from
-    # ~2 n^2 B to ~n (mu+1) B.  The covariance stream is the measured
-    # bound past interval ~10 (BENCH_NOTES round 3).
+    # ~2 n^2 B to ~n (mu+1) B (whether that stream bounds the step on a
+    # GPU is not measured).
     defer_covariance: bool = False
 
 
@@ -109,16 +107,12 @@ def _eigh_bm(C, config: CMAESFleetConfig):
         from ..linalg.jacobi import eigh_jacobi
 
         return eigh_jacobi(C, sweeps=config.sweeps, sort=False)
-    if config.eigh_method == "pallas":
-        from ..ops.eigh_jacobi import eigh_jacobi_pallas
-
-        return eigh_jacobi_pallas(
-            C, sweeps=config.sweeps, tile=config.pallas_tile, sort=False
-        )
     if config.eigh_method == "xla":
         w, v = jnp.linalg.eigh(jnp.moveaxis(C, -1, 0))
         return jnp.moveaxis(w, 0, -1), jnp.moveaxis(v, 0, -1)
-    raise ValueError(f"unknown eigh_method {config.eigh_method!r}")
+    raise ValueError(
+        f"unknown eigh_method {config.eigh_method!r}; 'jacobi' or 'xla'"
+    )
 
 
 def _materialize(C, a_buf, pc_buf, y_buf, filled, c1, cmu, w, mu, K):
@@ -264,7 +258,7 @@ def step(
     key, k_z = jax.random.split(state.key)
     z = jax.random.normal(k_z, (n, lam, B), dtype)
     Dz = D[:, None, :] * z                                 # [n, lam, B]
-    # y = B (D z): contraction over the small k axis unrolled into VPU FMAs
+    # y = B (D z): contraction over the small k axis unrolled into FMAs
     y = jnp.zeros((n, lam, B), dtype)
     for k in range(n):
         y = y + Bv[:, k, :][:, None, :] * Dz[k][None, :, :]

@@ -1,4 +1,4 @@
-"""Differential Evolution, TPU-native.
+"""Differential Evolution.
 
 Re-creation of the reference's ``DE`` class (nlsolver.h:2379-2477) with the
 population as one ``[pop, dim]`` array:
@@ -61,20 +61,10 @@ class DEConfig:
     #   "rotation" — per-generation random ring rotations: agent i's
     #                partners are (i+o1, i+o2, i+o3) mod P with the three
     #                offsets drawn fresh each generation from disjoint
-    #                ranges (distinct, nonzero).  Replaces the one-hot
-    #                selection matmul and per-agent index sampling with
-    #                three lane rolls — the fast path for large fleets.
+    #                ranges (distinct, nonzero).  Replaces the per-agent
+    #                index sampling and partner gathers with three lane
+    #                rolls — the fast path for large fleets.
     partner_sampling: str = "uniform"
-    # de_batched only: run each generation as the single fused Pallas
-    # kernel (ops/de_fused.py) — mutation, crossover, objective eval and
-    # greedy selection in one VMEM-resident pass (one HBM read + one write
-    # of the agent matrix per generation).  Requires
-    # partner_sampling="rotation"; the kernel uses the on-core PRNG
-    # (seeded per generation from the lane-0 key), so trajectories differ
-    # from the XLA path draw-for-draw while the algorithm is identical.
-    # Worth it for objectives XLA fails to fuse; for simple reduction
-    # objectives the XLA lane-roll path is ~20% faster (BENCH_NOTES.md).
-    use_fused_kernel: bool = False
 
 
 class DEState(NamedTuple):

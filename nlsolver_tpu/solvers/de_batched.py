@@ -1,25 +1,25 @@
 """High-throughput batched Differential Evolution, column-major layout.
 
-The general-purpose ``solvers.de`` stores agents as [pop, dim] rows — under
-``vmap`` that puts ``dim`` (often ~10) on the TPU lane axis, wasting >90% of
-the VPU, and the partner-selection gathers are scatter/gather ops XLA
-executes poorly.  This driver is the TPU-first redesign for large fleets
-(SURVEY.md §2 "fused DE mutation+crossover+select"):
+The general-purpose ``solvers.de`` stores agents as [pop, dim] rows; under
+``vmap`` every instance then works on a short trailing ``dim`` axis.  This
+driver is the layout for large fleets (SURVEY.md §2 "fused DE
+mutation+crossover+select"):
 
-  * agents live as ``[B, n, pop]`` — population on the lane axis;
-  * partner selection + mutation fuse into ONE batched MXU matmul:
-        donor = A @ (E1 + F (E2 - E3))^T
-    where Ek are the one-hot partner-selection matrices — no gathers at all;
+  * agents live as ``[B, n, pop]`` — population on the trailing axis;
+  * ``partner_sampling="uniform"`` gathers the three partner columns per
+    agent and forms the donor elementwise,
+        donor = A[:, r0] + F (A[:, r1] - A[:, r2]),
+    so every donor coordinate is exact f32 arithmetic (no matrix product,
+    hence no TF32 rounding on GPUs); ``"rotation"`` replaces the per-agent
+    partners with three lane rolls of the whole population;
   * the "random" strategy's crossover base is the agent matrix itself
-    (fixed = self), so no base gather either; "best" broadcasts one column;
+    (fixed = self), so no base gather; "best" broadcasts one column;
   * objectives are evaluated column-wise (``vmap(fn, in_axes=1)``), so a
     reduction-over-coordinates objective (all the classical test functions)
-    reduces over sublanes with the batch on lanes.
+    reduces over the short axis with the batch and population wide.
 
 Semantics are identical to ``solvers.de`` (same init-width quirk, greedy
-selection, termination rule); only the execution layout differs.  Measured
-on one v5e chip this is the difference between ~3.4 ms and tens of
-microseconds per generation at B=2048, pop=64, dim=10.
+selection, termination rule); only the execution layout differs.
 """
 from __future__ import annotations
 
@@ -88,10 +88,6 @@ def step(fn, state: DEBatchState, config: DEConfig) -> DEBatchState:
     done_now = (state.iteration >= config.max_iter) | hit_tol
 
     rotation = config.partner_sampling == "rotation"
-    if config.use_fused_kernel and not rotation:
-        raise ValueError(
-            "DEConfig.use_fused_kernel requires partner_sampling='rotation'"
-        )
     f_w = jnp.asarray(config.differential_weight, dtype)
 
     def propose(key, agents_i, scores_i, offs):
@@ -110,15 +106,10 @@ def step(fn, state: DEBatchState, config: DEConfig) -> DEBatchState:
             else:
                 fixed = jnp.arange(P, dtype=jnp.int32)
             r = distinct_indices(k_idx, P, fixed, k=3)      # [P, 3]
-            # combined selection matrix: columns of A @ S^T are
-            # A[:, r0] + F (A[:, r1] - A[:, r2]) — one MXU matmul, no gathers
-            e = jax.nn.one_hot(r, P, dtype=dtype)           # [P, 3, P]
-            S = e[:, 0, :] + f_w * (e[:, 1, :] - e[:, 2, :])
-            donor = jax.lax.dot_general(
-                agents_i, S,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=dtype,
-            )                                               # [n, P_tgt]
+            pick = lambda j: jnp.take_along_axis(
+                agents_i, jnp.broadcast_to(r[None, :, j], (n, P)), axis=1
+            )
+            donor = pick(0) + f_w * (pick(1) - pick(2))     # [n, P_tgt]
 
         fdim = jax.random.randint(k_dim, (P,), 0, n)
         u = jax.random.uniform(k_cross, (n, P), dtype=dtype)
@@ -144,44 +135,6 @@ def step(fn, state: DEBatchState, config: DEConfig) -> DEBatchState:
             jax.random.randint(jax.random.fold_in(ko, 2), (), third + 1, 2 * third + 1),
             jax.random.randint(jax.random.fold_in(ko, 3), (), 2 * third + 1, P),
         ])
-        if config.use_fused_kernel:
-            # one Pallas kernel: mutation + crossover + objective + select,
-            # all VMEM-resident (ops/de_fused.py)
-            from ..ops.de_fused import de_generation_fused
-
-            seed = jax.random.randint(
-                jax.random.fold_in(ko, 4), (), 0, jnp.iinfo(jnp.int32).max
-            ).astype(jnp.int32)
-            tile = next(t for t in (256, 128, 64, 32, 16, 8, 4, 2, 1) if B % t == 0)
-            new_agents, new_scores = de_generation_fused(
-                fn,
-                state.agents,
-                state.scores,
-                seed,
-                offs,
-                cross_prob=float(config.crossover_prob),
-                diff_weight=float(config.differential_weight),
-                tile=tile,
-            )
-            frozen = state.done | done_now
-
-            def keep(old, new):
-                m = frozen
-                while m.ndim < new.ndim:
-                    m = m[..., None]
-                return jnp.where(m, old, new)
-
-            return DEBatchState(
-                agents=keep(state.agents, new_agents),
-                scores=keep(state.scores, new_scores),
-                best_value=best_now,
-                iteration=keep(state.iteration, state.iteration + 1),
-                nfev=keep(state.nfev, state.nfev + P),
-                val_no_change=val_no_change,
-                keys=state.keys,
-                done=state.done | done_now,
-                converged=jnp.where(state.done, state.converged, hit_tol),
-            )
         proposals, keys = jax.vmap(
             lambda key, A, s: propose(key, A, s, offs)
         )(state.keys, state.agents, state.scores)
@@ -193,7 +146,7 @@ def step(fn, state: DEBatchState, config: DEConfig) -> DEBatchState:
     prop_scores = _eval_columns(fn, proposals)
     # fold the active-lane freeze INTO the greedy-selection mask: a
     # separate keep() pass after the select would re-stream agents/scores
-    # a second time through HBM (measured win on the [n, P, B] PSO fleet)
+    # a second time through device memory
     act = ~(state.done | done_now)                          # [B]
     accept = (prop_scores < state.scores) & act[:, None]    # [B, P]
     new_agents = jnp.where(accept[:, None, :], proposals, state.agents)

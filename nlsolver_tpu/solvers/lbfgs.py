@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..core import Bounds, Objective, SolverResult, drive, make_result, signed
+from ..core.utils import HIGHEST
 from ..deriv import Deriv, make_grad
 from ..linesearch import more_thuente
 
@@ -58,7 +59,7 @@ def two_loop_direction(g, s_hist, y_hist, rho_hist, valid, head):
         q, alphas = carry
         idx = (head - 1 - i) % m
         ok = valid[idx]
-        alpha = jnp.where(ok, rho_hist[idx] * jnp.dot(s_hist[idx], q), 0.0)
+        alpha = jnp.where(ok, rho_hist[idx] * jnp.dot(s_hist[idx], q, precision=HIGHEST), 0.0)
         q = q - alpha * y_hist[idx]
         return q, alphas.at[idx].set(alpha)
 
@@ -68,8 +69,8 @@ def two_loop_direction(g, s_hist, y_hist, rho_hist, valid, head):
 
     # initial Hessian scaling gamma = s.y / y.y of the newest pair
     newest = (head - 1) % m
-    ys = jnp.dot(s_hist[newest], y_hist[newest])
-    yy = jnp.dot(y_hist[newest], y_hist[newest])
+    ys = jnp.dot(s_hist[newest], y_hist[newest], precision=HIGHEST)
+    yy = jnp.dot(y_hist[newest], y_hist[newest], precision=HIGHEST)
     gamma = jnp.where(valid[newest] & (yy > 0), ys / yy, 1.0)
     r = gamma * q
 
@@ -77,7 +78,7 @@ def two_loop_direction(g, s_hist, y_hist, rho_hist, valid, head):
     def second_loop(i, r):
         idx = (head + i) % m
         ok = valid[idx]
-        beta = jnp.where(ok, rho_hist[idx] * jnp.dot(y_hist[idx], r), 0.0)
+        beta = jnp.where(ok, rho_hist[idx] * jnp.dot(y_hist[idx], r, precision=HIGHEST), 0.0)
         return r + (alphas[idx] - beta) * s_hist[idx]
 
     r = lax.fori_loop(0, m, second_loop, r)
@@ -135,7 +136,7 @@ def step(
         pg, state.s_hist, state.y_hist, state.rho_hist, state.valid, state.head
     )
     # safeguard: fall back to steepest descent on loss of descent
-    descent = jnp.dot(pg, d) < 0
+    descent = jnp.dot(pg, d, precision=HIGHEST) < 0
     d = jnp.where(descent, d, -pg)
 
     f0 = fn(state.x)
@@ -148,7 +149,7 @@ def step(
     new_g = grad_fn(new_x)
     y = new_g - g
 
-    ys = jnp.dot(y, s)
+    ys = jnp.dot(y, s, precision=HIGHEST)
     good_pair = ys > 1e-10
     idx = state.head % m
     s_hist = state.s_hist.at[idx].set(jnp.where(good_pair, s, state.s_hist[idx]))

@@ -20,7 +20,7 @@ Sci. Comput. 16(5), 1995):
      boundary (the MINPACK ``stpmax`` the reference hard-codes to 1e15,
      nlsolver.h:1686, here set to the max feasible step).
 
-TPU notes: the per-step dense work is O(n*m) matvecs plus one 2m x 2m
+Execution notes: the per-step dense work is O(n*m) matvecs plus one 2m x 2m
 inverse; the breakpoint scan is n sequential steps of O(m) work.  For
 large fleets vmap the whole ``minimize`` — every lane runs the same static
 program.  Convergence is scipy-compatible: sup-norm of the projected
@@ -36,7 +36,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..core import Bounds, Objective, SolverResult, drive, make_result, signed
-from ..core.utils import tree_where
+from ..core.utils import HIGHEST, tree_where
 from ..deriv import Deriv, make_grad
 from ..linesearch import more_thuente
 
@@ -85,18 +85,18 @@ def _compact_rep(s_hist, y_hist, valid, head):
     Y = y_hist[order]
     v = valid[order].astype(dtype)               # [m]
 
-    SY = S @ Y.T                                 # [m, m]: SY[i, j] = s_i . y_j
+    SY = jnp.matmul(S, Y.T, precision=HIGHEST)   # [m, m]: SY[i, j] = s_i . y_j
     d = jnp.diag(SY)                             # s_i . y_i
     vv = v[:, None] * v[None, :]
     L = jnp.tril(SY, k=-1) * vv
     D = jnp.where(v > 0, d, 1.0)                 # pad invalid slots
 
     newest = (head - 1) % m
-    ys = jnp.dot(s_hist[newest], y_hist[newest])
-    yy = jnp.dot(y_hist[newest], y_hist[newest])
+    ys = jnp.dot(s_hist[newest], y_hist[newest], precision=HIGHEST)
+    yy = jnp.dot(y_hist[newest], y_hist[newest], precision=HIGHEST)
     theta = jnp.where(valid[newest] & (yy > 0), yy / ys, 1.0)
 
-    SS = (S @ S.T) * vv
+    SS = jnp.matmul(S, S.T, precision=HIGHEST) * vv
     SS = SS + jnp.diag(jnp.where(v > 0, 0.0, 1.0))
 
     Mmat = jnp.block([[-jnp.diag(D), L.T], [L, theta * SS]])
@@ -126,10 +126,12 @@ def _cauchy_point(x, g, lower, upper, theta, W, Minv):
 
     order = jnp.argsort(t)
 
-    p = W.T @ d0                                               # [2m]
+    p = jnp.matmul(W.T, d0, precision=HIGHEST)                 # [2m]
     c = jnp.zeros_like(p)
-    fp = -jnp.dot(d0, d0)
-    fpp = -theta * fp - p @ (Minv @ p)
+    fp = -jnp.dot(d0, d0, precision=HIGHEST)
+    fpp = -theta * fp - jnp.dot(
+        p, jnp.matmul(Minv, p, precision=HIGHEST), precision=HIGHEST
+    )
     fpp = jnp.maximum(fpp, eps)
 
     class C(NamedTuple):
@@ -153,15 +155,17 @@ def _cauchy_point(x, g, lower, upper, theta, W, Minv):
         zb = jnp.where(d0[b] > 0, upper[b], lower[b]) - x[b]
         wb = W[b]
         c_new = carry.c + dt * carry.p
-        Mc = Minv @ c_new
-        Mp = Minv @ carry.p
+        Mc = jnp.matmul(Minv, c_new, precision=HIGHEST)
+        Mp = jnp.matmul(Minv, carry.p, precision=HIGHEST)
+        Mw = jnp.matmul(Minv, wb, precision=HIGHEST)
         fp_new = (
             carry.fp + dt * carry.fpp + gb * gb + theta * gb * zb
-            - gb * jnp.dot(wb, Mc)
+            - gb * jnp.dot(wb, Mc, precision=HIGHEST)
         )
         fpp_new = (
-            carry.fpp - theta * gb * gb - 2.0 * gb * jnp.dot(wb, Mp)
-            - gb * gb * jnp.dot(wb, Minv @ wb)
+            carry.fpp - theta * gb * gb
+            - 2.0 * gb * jnp.dot(wb, Mp, precision=HIGHEST)
+            - gb * gb * jnp.dot(wb, Mw, precision=HIGHEST)
         )
         fpp_new = jnp.maximum(fpp_new, eps)
         p_new = carry.p + gb * wb
@@ -211,13 +215,14 @@ def _subspace_step(x, g, xcp, c, free, lower, upper, theta, W, Minv):
     twom = W.shape[1]
 
     # reduced gradient of the quadratic at xcp
-    r = (g + theta * (xcp - x) - W @ (Minv @ c)) * F
+    mm = lambda a, b: jnp.matmul(a, b, precision=HIGHEST)
+    r = (g + theta * (xcp - x) - mm(W, mm(Minv, c))) * F
 
-    k = Minv @ (W.T @ r)
+    k = mm(Minv, mm(W.T, r))
     WF = W * F[:, None]                      # Z Z^T W
-    N = jnp.eye(twom, dtype=dtype) - Minv @ (W.T @ WF) / theta
+    N = jnp.eye(twom, dtype=dtype) - mm(Minv, mm(W.T, WF)) / theta
     v = jnp.linalg.solve(N, k)
-    du = -(r / theta + (WF @ v) / theta**2) * F
+    du = -(r / theta + mm(WF, v) / theta**2) * F
 
     # alpha*: largest step in [0, 1] keeping xcp + alpha*du inside the box
     gap = jnp.where(du > 0, upper - xcp, lower - xcp)
@@ -289,15 +294,15 @@ def step(fn, state: LBFGSBState, config: LBFGSBConfig, lower, upper) -> LBFGSBSt
     xbar = _subspace_step(x, g, xcp, c, free, lower, upper, theta, W, Minv)
 
     d = xbar - x
-    dg = jnp.dot(g, d)
+    dg = jnp.dot(g, d, precision=HIGHEST)
     # fall back to the Cauchy direction, then to the projected gradient,
     # whenever the subspace step loses descent (mirrors the reference's
     # BFGS H-reset self-healing, nlsolver.h:3253-3260)
     d_cp = xcp - x
     d = jnp.where(dg < 0, d, d_cp)
-    dg = jnp.dot(g, d)
+    dg = jnp.dot(g, d, precision=HIGHEST)
     d = jnp.where(dg < 0, d, pg)
-    dg = jnp.dot(g, d)
+    dg = jnp.dot(g, d, precision=HIGHEST)
 
     # max feasible step along d (xbar is feasible, so alpha_max >= 1)
     gap = jnp.where(d > 0, upper - x, lower - x)
@@ -311,8 +316,8 @@ def step(fn, state: LBFGSBState, config: LBFGSBConfig, lower, upper) -> LBFGSBSt
     new_g = grad_fn(new_x)
     y = new_g - g
 
-    ys = jnp.dot(y, s)
-    yy = jnp.dot(y, y)
+    ys = jnp.dot(y, s, precision=HIGHEST)
+    yy = jnp.dot(y, y, precision=HIGHEST)
     good_pair = ys > jnp.asarray(jnp.finfo(dtype).eps, dtype) * yy
     idx = state.head % m
     s_hist = state.s_hist.at[idx].set(jnp.where(good_pair, s, state.s_hist[idx]))

@@ -7,7 +7,7 @@ scalar objective:
 
   * solve (H + lambda I) u = g each iteration (nlsolver.h:3529-3533; the
     reference dispatches between a diagonal fast path and an in-place
-    Cholesky — on TPU a Cholesky solve covers both, and a non-PD system
+    Cholesky — here one Cholesky solve covers both, and a non-PD system
     yields NaNs which terminate exactly like the reference's garbage-solve
     path);
   * x <- x - u; lambda /= down on improvement, *= up otherwise

@@ -1,4 +1,4 @@
-"""Nelder-Mead simplex solver, TPU-native.
+"""Nelder-Mead simplex solver.
 
 Re-creation of the reference's ``NelderMead`` class (nlsolver.h:2099-2300)
 as a pure init/step state machine:

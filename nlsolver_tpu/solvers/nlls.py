@@ -2,8 +2,8 @@
 
 The reference's ``LevenbergMarquardt`` damps the full Hessian of a scalar
 objective (see ``solvers/lm.py``); for actual least-squares fits the proper
-formulation is Gauss-Newton on the residual Jacobian (SURVEY.md §3.4 "TPU
-mapping ... Gauss-Newton J^T J"; BASELINE.json config #5: "Levenberg-
+formulation is Gauss-Newton on the residual Jacobian (SURVEY.md §3.4,
+"Gauss-Newton J^T J"; BASELINE.json config #5: "Levenberg-
 Marquardt batched nonlinear least-squares fits").
 
     r(x) in R^m,  cost = ||r(x)||^2
@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core import SolverResult, drive, make_result
+from ..core.utils import HIGHEST
 from ..linalg import damped_solve
 
 
@@ -84,8 +85,8 @@ def init(residual_fn: Callable, x0: jax.Array, config: NLLSConfig) -> NLLSState:
 def step(residual_fn: Callable, state: NLLSState, config: NLLSConfig) -> NLLSState:
     r = residual_fn(state.x)
     J = jax.jacfwd(residual_fn)(state.x)      # [m, n]
-    g = J.T @ r                               # gradient of 0.5*cost
-    JtJ = J.T @ J
+    g = jnp.matmul(J.T, r, precision=HIGHEST)    # gradient of 0.5*cost
+    JtJ = jnp.matmul(J.T, J, precision=HIGHEST)
 
     hit_tol = (jnp.abs(state.prev_cost - state.cost) < config.f_delta) | (
         jnp.linalg.norm(g) < config.grad_eps

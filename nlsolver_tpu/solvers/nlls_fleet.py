@@ -9,16 +9,12 @@ repo's batch-minor layout rule, CLAUDE.md "performance layouts") and
 plugs in the lane-native factorizations:
 
   * ``solve="cholesky"`` — damped normal equations via the unrolled
-    batch-minor Cholesky (ops/smallchol.py);
+    batch-minor Cholesky (ops/smallchol.py); J^T J and J^T r are taken at
+    ``Precision.HIGHEST`` (a TF32 product would cost the normal equations
+    their f32 accuracy on GPUs);
   * ``solve="qr"`` — the augmented system [J; sqrt(lam) I] through the
     Sameh-Kuck wavefront least squares (linalg/qr_parallel.py) —
-    avoids squaring the condition number;
-  * ``solve="qr_pallas"`` — the same augmented system through the
-    VMEM-resident Pallas kernel (ops/qr_wavefront.py:
-    ``least_squares_wavefront_pallas`` — rotations thread the rhs and the
-    back-substitution runs in-kernel; measured 1.8-3.0x the jnp wavefront
-    pipeline, BENCH_NOTES round 4).  TPU only; falls back to ``qr`` in
-    interpret-free CPU runs via the ``pallas_interpret`` flag.
+    avoids squaring the condition number.
 
 Algorithm identical to ``solvers.nlls`` (Gauss-Newton J^T J with the
 lambda accept/reject schedule; the reference's damped-Hessian intent,
@@ -36,6 +32,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..core import make_result
+from ..core.utils import HIGHEST
 from ..ops.smallchol import solve_spd_batchminor
 
 
@@ -54,9 +51,7 @@ class NLLSFleetConfig:
     # after ~log(lambda_max/lambda0)/log(upward_mult) rejections,
     # converged=False
     lambda_max: float = 1e12
-    solve: str = "cholesky"          # cholesky | qr | qr_pallas
-    pallas_tile: int = 128
-    pallas_interpret: bool = False   # interpret-mode kernel (tests off-TPU)
+    solve: str = "cholesky"          # cholesky | qr
 
 
 class NLLSFleetState(NamedTuple):
@@ -108,30 +103,22 @@ def _cost_bm(residual_fn, X, data):
 def _delta(r, J, lam, config: NLLSFleetConfig):
     """Solve the damped LM system for every lane, [n, B] out."""
     m, n, B = J.shape
-    if config.solve in ("qr", "qr_pallas"):
+    if config.solve == "qr":
         eye = jnp.eye(n, dtype=J.dtype)[:, :, None]
         damp = jnp.sqrt(lam)[None, None, :] * eye              # [n, n, B]
         A_aug = jnp.concatenate([J, damp], axis=0)             # [m+n, n, B]
         y_aug = jnp.concatenate(
             [r, jnp.zeros((n, B), r.dtype)], axis=0
         )
-        if config.solve == "qr_pallas":
-            from ..ops.qr_wavefront import least_squares_wavefront_pallas
-
-            return least_squares_wavefront_pallas(
-                A_aug, y_aug,
-                tile=config.pallas_tile,
-                interpret=config.pallas_interpret,
-            )
         from ..linalg.qr_parallel import least_squares_parallel
 
         return least_squares_parallel(A_aug, y_aug)
     if config.solve != "cholesky":
         raise ValueError(
-            f"unknown solve {config.solve!r}; cholesky | qr | qr_pallas"
+            f"unknown solve {config.solve!r}; cholesky | qr"
         )
-    JtJ = jnp.einsum("mi...,mj...->ij...", J, J)               # [n, n, B]
-    g = jnp.einsum("mi...,m...->i...", J, r)                   # [n, B]
+    JtJ = jnp.einsum("mi...,mj...->ij...", J, J, precision=HIGHEST)  # [n, n, B]
+    g = jnp.einsum("mi...,m...->i...", J, r, precision=HIGHEST)      # [n, B]
     eye = jnp.eye(n, dtype=J.dtype)[:, :, None]
     return solve_spd_batchminor(JtJ + lam[None, None, :] * eye, g)
 
@@ -156,7 +143,7 @@ def step(
     residual_fn, state: NLLSFleetState, config: NLLSFleetConfig, data=None
 ) -> NLLSFleetState:
     r, J = _residuals_bm(residual_fn, state.x, data)
-    g = jnp.einsum("mi...,m...->i...", J, r)                   # [n, B]
+    g = jnp.einsum("mi...,m...->i...", J, r, precision=HIGHEST)      # [n, B]
     gnorm = jnp.sqrt(jnp.sum(g * g, axis=0))
 
     hit_tol = (jnp.abs(state.prev_cost - state.cost) < config.f_delta) | (

@@ -1,4 +1,4 @@
-"""Particle Swarm Optimization (vanilla + accelerated), TPU-native.
+"""Particle Swarm Optimization (vanilla + accelerated).
 
 Re-creation of the reference's ``PSO`` class (nlsolver.h:2496-2742) with the
 swarm as ``[n_particles, dim]`` arrays updated by fused vector ops and a

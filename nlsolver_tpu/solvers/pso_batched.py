@@ -1,18 +1,15 @@
 """High-throughput batched PSO, batch-minor (lane-axis) layout.
 
 The general-purpose ``solvers.pso`` stores the swarm as ``[P, n]`` rows;
-vmapping it over B problem instances puts ``dim`` on the TPU lane axis and
-turns the per-instance swarm-best extraction (``positions[argmin]``) into a
-vmapped dynamic-slice — a [B]-indexed gather from an ``[B, P, n]`` array
-that XLA lowers poorly and that measurably *regresses* past B≈2048
-(BENCH_ALL_r04 saturation.pso_sann_100d: 2.14M → 1.88M iters/s from
-B=2048 to B=8192).  This driver is the TPU-first redesign for large fleets
-(round-4 verdict #1), mirroring ``solvers/de_batched.py``:
+vmapping it over B problem instances puts the short ``dim`` on the
+trailing axis and turns the per-instance swarm-best extraction
+(``positions[argmin]``) into a vmapped dynamic-slice — a [B]-indexed
+gather from an ``[B, P, n]`` array.  This driver is the layout for large
+fleets, mirroring ``solvers/de_batched.py``:
 
-  * the fleet lives as ``[n, P, B]`` — the INSTANCE batch on the 128-lane
-    axis (always thousands wide, so lanes never pad; a ``[B, n, P]``
-    layout would pad the BASELINE swarm of P=32 to 128 lanes, wasting 4x),
-    particles on sublanes, coordinates leading;
+  * the fleet lives as ``[n, P, B]`` — the INSTANCE batch on the trailing
+    axis (always thousands wide), particles in the middle, coordinates
+    leading;
   * every update is elementwise over the full ``[n, P, B]`` block; the
     swarm-best extraction is gather-free: an ``argmin``-vs-``iota`` one-hot
     mask and a reduction over the particle axis;
@@ -121,10 +118,9 @@ def step(
         std_err(state.best_values, axis=0) < config.eps
     )
     done_now = (state.iteration >= config.max_iter) | hit_tol
-    # active-lane mask, folded INTO every big select below: this workload
-    # is HBM-bound (~80% of the measured stream ceiling at the knee), and
-    # a separate freeze pass after the update would re-stream every
-    # [n, P, B] array a second time (measured ~1/3 of step time at B=32k)
+    # active-lane mask, folded INTO every big select below: a separate
+    # freeze pass after the update would re-stream every [n, P, B] array
+    # a second time (the cost of that pass on a GPU is not measured)
     act = ~(state.done | done_now)              # [B]
     a2 = act[None, :]                           # [P, B] broadcasts
     a3 = act[None, None, :]                     # [n, P, B] broadcasts

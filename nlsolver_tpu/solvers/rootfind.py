@@ -3,7 +3,7 @@ ITP, Chandrupatla.
 
 Re-creation of ``nlsolver::rootfinder`` (nlsolver.h:3923-4319) as pure
 scalar state machines under ``lax.while_loop`` — every finder ``vmap``s over
-large batches of bracketing problems, which is the TPU execution model
+large batches of bracketing problems, which is the fleet execution model
 (SURVEY.md §3.5: "vmapped scalar while-loops over large batches").
 
 Differences from the reference (deliberate):
@@ -374,10 +374,24 @@ def tiruneh(fn, x_k=(-100.0, 0.0, 100.0), eps=1e-6, tol=1e-12, max_iter=10) -> R
     )
 
 
-def itp(fn, lower, upper, kappa1=0.3, kappa2=2.1, n0=1.0, tol=1e-12, eps=1e-12, max_iter=200) -> RootResult:
-    """ITP method (nlsolver.h:4184-4249).  Follows the reference's variant
-    where sigma is the 0/1 indicator (mid > interp) rather than the paper's
-    +-1 sign."""
+def itp(fn, lower, upper, kappa1=0.3, kappa2=2.1, n0=1.0, tol=1e-12, eps=1e-12,
+        max_iter=200, variant="fixed") -> RootResult:
+    """ITP method (nlsolver.h:4184-4249; Oliveira & Takahashi, ACM TOMS
+    47(1), 2020).
+
+    Default fixes two reference quirks; ``variant="reference"`` reproduces
+    them for trajectory parity:
+      * the reference's projection radius ``r = eps 2^(n_max - 1) - (b-a)/2``
+        never shrinks with the iteration count j (the paper's
+        ``eps 2^(n_max - j)``), so ITP loses its bisection-like worst case:
+        once the interpolation lands on a bracket end and the truncation
+        step is below one ulp, the step repeats until max_iter (measured:
+        40% of a float32 fleet of x^3 - c brackets missed 1e-6);
+      * sigma is the 0/1 indicator (mid > interp) rather than the paper's
+        +-1 sign, and the projection test is the signed ``mid - interp <= r``
+        rather than ``|x_t - mid| <= r``.
+    """
+    reference = variant == "reference"
     a = jnp.asarray(lower, jnp.result_type(lower, upper, float))
     b = jnp.asarray(upper, a.dtype)
     fa = fn(a)
@@ -409,13 +423,19 @@ def itp(fn, lower, upper, kappa1=0.3, kappa2=2.1, n0=1.0, tol=1e-12, eps=1e-12, 
         exhausted = (b_min_a < two_eps) | (s.it >= max_iter)
 
         mid = (s.a + s.b) / 2
-        r = eps * 2.0 ** (n_max - 1) - b_min_a / 2
         delta = kappa1 * b_min_a**kappa2
         interp = (s.fb * s.a - s.fa * s.b) / jnp.where(s.fb == s.fa, 1.0, s.fb - s.fa)
         temp = mid - interp
-        sigma = (temp > 0).astype(s.a.dtype)  # reference's 0/1 indicator
-        project = temp <= r
-        interp = jnp.where(delta <= jnp.abs(temp), interp + sigma * delta, mid)
+        if reference:
+            r = eps * 2.0 ** (n_max - 1) - b_min_a / 2
+            sigma = (temp > 0).astype(s.a.dtype)  # reference's 0/1 indicator
+            project = temp <= r
+            interp = jnp.where(delta <= jnp.abs(temp), interp + sigma * delta, mid)
+        else:
+            r = eps * 2.0 ** (n_max - s.it.astype(s.a.dtype)) - b_min_a / 2
+            sigma = jnp.sign(temp)
+            interp = jnp.where(delta <= jnp.abs(temp), interp + sigma * delta, mid)
+            project = jnp.abs(interp - mid) <= r
         xt = jnp.where(project, interp, mid - sigma * r)
 
         ft = fn(xt)

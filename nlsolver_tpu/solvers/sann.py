@@ -1,4 +1,4 @@
-"""Simulated Annealing (SANN), TPU-native.
+"""Simulated Annealing (SANN).
 
 Re-creation of the reference's ``SANN`` class (nlsolver.h:2744-2815), an
 R-optim-style Boltzmann-annealing sampler:
@@ -19,7 +19,7 @@ R-optim-style Boltzmann-annealing sampler:
 
 The inner loop is a ``lax.scan`` over the proposals of one temperature
 stage; the proposals are inherently sequential (a Markov chain), so the
-batch axis for TPU throughput is problem instances via ``vmap``.
+batch axis for throughput is problem instances via ``vmap``.
 """
 from __future__ import annotations
 

@@ -3,9 +3,9 @@
 ``solvers.sann`` under ``vmap`` carries the chain point as ``[B, n]`` rows —
 the objective then reduces over the TRAILING (lane) axis per instance, the
 slow reduction direction, and every inner proposal splits B keys
-one-instance-at-a-time.  This driver is the TPU-first fleet redesign
-(round-4 verdict #1): the chain lives as ``[n, B]`` with the instance batch
-on the 128-lane axis, each Metropolis proposal is one fused elementwise
+one-instance-at-a-time.  This driver is the fleet layout: the chain
+lives as ``[n, B]`` with the instance batch on the trailing axis, each
+Metropolis proposal is one fused elementwise
 block over the whole fleet, and the objective reduces over the LEADING
 coordinate axis with B vectorized behind it.
 

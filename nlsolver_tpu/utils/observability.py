@@ -1,7 +1,7 @@
 """Tracing / debugging hooks.
 
 The reference's observability surface is ``solver_status`` counters plus
-raw stdout (SURVEY.md §5).  The TPU-native equivalents:
+raw stdout (SURVEY.md §5).  The equivalents here:
 
   * counters ride inside every solver state / SolverResult (jit-pure);
   * ``trace()`` wraps ``jax.profiler.trace`` to capture a TensorBoard-

@@ -4,7 +4,7 @@ Usage: python distributed_child.py <process_id> <num_processes> <port>
 
 Each process owns 2 virtual CPU devices (XLA_FLAGS set by the parent), so
 2 processes form a 4-device global mesh (dp=2 spanning processes — the
-DCN axis — pop=2 within a process).  Runs `minimize_islands` on the global
+cross-host axis — pop=2 within a process).  Runs `minimize_islands` on the global
 mesh and prints this process's addressable slice of the result so the
 parent can stitch the global vector and compare it bit-for-bit with a
 single-process run (per-agent streams are derived with fold_in, so results

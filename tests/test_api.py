@@ -444,3 +444,65 @@ def test_layout_sharded_pso_sann_fleets(key):
     )
     assert r.x.shape == (8, 2)
     assert float(jnp.median(r.f_value)) < 1e-2
+
+
+def _fleet_fit(cfg):
+    t = jnp.linspace(0.0, 1.0, 4)
+    return nlsolver_tpu.fit_fleet(
+        lambda p, y: p[0] * jnp.exp(-p[1] * t) - y,
+        jnp.ones((2, 3)), cfg, data=jnp.ones((3, 4)),
+    )
+
+
+def _cmaes_fleet(method):
+    from nlsolver_tpu.solvers.cmaes_fleet import CMAESFleetConfig
+
+    return nlsolver_tpu.minimize(
+        lambda x: jnp.sum(x * x), jnp.ones((2, 4)), "cmaes",
+        CMAESFleetConfig(eigh_method=method, max_iter=2), layout="fleet",
+        key=jax.random.key(0),
+    )
+
+
+def _removed_options():
+    from nlsolver_tpu import linalg
+    from nlsolver_tpu.solvers import bfgs_fleet, cmaes_fleet, de
+
+    return {
+        "bfgs_fleet_use_pallas": (
+            lambda: bfgs_fleet.BFGSFleetConfig(use_pallas=True),
+            TypeError, "use_pallas"),
+        "de_use_fused_kernel": (
+            lambda: de.DEConfig(use_fused_kernel=True),
+            TypeError, "use_fused_kernel"),
+        "cmaes_fleet_pallas_tile": (
+            lambda: cmaes_fleet.CMAESFleetConfig(pallas_tile=128),
+            TypeError, "pallas_tile"),
+        "cmaes_fleet_eigh_pallas": (
+            lambda: _cmaes_fleet("pallas"), ValueError, "unknown eigh_method"),
+        "nlls_fleet_qr_pallas": (
+            lambda: _fleet_fit(nlsolver_tpu.NLLSFleetConfig(solve="qr_pallas")),
+            ValueError, "unknown solve"),
+        "nlls_fleet_pallas_interpret": (
+            lambda: nlsolver_tpu.NLLSFleetConfig(pallas_interpret=True),
+            TypeError, "pallas_interpret"),
+        "linalg_qr_pallas": (
+            lambda: linalg.qr(jnp.ones((4, 2, 3)), method="pallas"),
+            ValueError, "unknown qr method"),
+        "linalg_eigh_pallas": (
+            lambda: linalg.eigh(jnp.eye(3), method="pallas"),
+            ValueError, "unknown eigh method"),
+    }
+
+
+@pytest.mark.parametrize("option", [
+    "bfgs_fleet_use_pallas", "cmaes_fleet_eigh_pallas",
+    "cmaes_fleet_pallas_tile", "de_use_fused_kernel", "linalg_eigh_pallas",
+    "linalg_qr_pallas", "nlls_fleet_pallas_interpret", "nlls_fleet_qr_pallas",
+])
+def test_removed_kernel_options_raise(option):
+    """The options that selected the deleted Pallas kernels fail like any
+    unknown option or value, instead of silently picking another path."""
+    call, exc, match = _removed_options()[option]
+    with pytest.raises(exc, match=match):
+        call()

@@ -1,4 +1,4 @@
-"""Batch-minor BFGS fleet: kernel equivalence, parity with the vmapped
+"""Batch-minor BFGS fleet: update equivalence, parity with the vmapped
 solver, lane freezing, and the fleet More-Thuente search."""
 import jax
 import jax.numpy as jnp
@@ -28,10 +28,10 @@ class TestBatchMinorKernel:
         rho = jax.random.uniform(k5, (B,), jnp.float32, 0.1, 2.0)
         reset = jnp.zeros((B,), bool)
 
-        Hn, d = rank2.rank2_direction_batchminor_jnp(H, s, y, g, rho, reset)
+        Hn, d = rank2.rank2_direction_batchminor(H, s, y, g, rho, reset)
         # against the [B, n, n] einsum formulation already tested in test_ops
         Hb = jnp.transpose(H, (2, 0, 1))
-        Hn_ref = rank2.rank2_update_batched_jnp(Hb, s.T, y.T, rho)
+        Hn_ref = rank2.rank2_update_batched(Hb, s.T, y.T, rho)
         np.testing.assert_allclose(
             np.transpose(Hn, (2, 0, 1)), Hn_ref, rtol=2e-5, atol=2e-5
         )
@@ -49,32 +49,14 @@ class TestBatchMinorKernel:
         rho = jax.random.uniform(k5, (B,), jnp.float32, 0.1, 2.0)
         reset = jnp.arange(B) % 2 == 0
 
-        Hn, _ = rank2.rank2_direction_batchminor_jnp(H, s, y, g, rho, reset)
+        Hn, _ = rank2.rank2_direction_batchminor(H, s, y, g, rho, reset)
         eyeB = jnp.broadcast_to(jnp.eye(n, dtype=jnp.float32)[:, :, None], H.shape)
-        Hn_id, _ = rank2.rank2_direction_batchminor_jnp(
+        Hn_id, _ = rank2.rank2_direction_batchminor(
             eyeB, s, y, g, rho, jnp.zeros((B,), bool)
         )
         np.testing.assert_allclose(
             np.asarray(Hn)[:, :, ::2], np.asarray(Hn_id)[:, :, ::2], rtol=1e-6
         )
-
-    def test_pallas_interpret_matches_jnp(self):
-        key = jax.random.key(2)
-        k1, k2, k3, k4, k5 = jax.random.split(key, 5)
-        n, B = 8, 200  # non-multiple of the tile: exercises padding
-        H = _random_spd_batchminor(k1, n, B)
-        s = jax.random.normal(k2, (n, B), jnp.float32)
-        y = jax.random.normal(k3, (n, B), jnp.float32)
-        g = jax.random.normal(k4, (n, B), jnp.float32)
-        rho = jax.random.uniform(k5, (B,), jnp.float32, 0.1, 2.0)
-        reset = jnp.arange(B) % 3 == 0
-
-        Hn, d = rank2.rank2_direction_batchminor_jnp(H, s, y, g, rho, reset)
-        Hp, dp = rank2.rank2_direction_batchminor_pallas(
-            H, s, y, g, rho, reset, tile=128, interpret=True
-        )
-        np.testing.assert_allclose(Hp, Hn, rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(dp, d, rtol=1e-6, atol=1e-6)
 
 
 class TestFleetMoreThuente:

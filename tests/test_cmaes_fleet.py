@@ -44,23 +44,6 @@ def test_eigh_backends_agree_statistically(key, method):
     assert int(jnp.sum(d <= 0.05)) >= 28, (method, d)
 
 
-def test_fleet_pallas_interpret(key):
-    cfg = CMAESFleetConfig(eigh_method="pallas", pallas_tile=16, max_iter=150)
-    B = 16
-    # interpret-mode Pallas runs off-TPU; tile == B keeps one program
-    import nlsolver_tpu.ops.eigh_jacobi as ej
-    import functools
-    orig = ej.eigh_jacobi_pallas
-    ej.eigh_jacobi_pallas = functools.partial(orig, interpret=True)
-    try:
-        res = cmaes_fleet.minimize_fleet(
-            rosen, jnp.full((2, B), -0.5), cfg, key=key
-        )
-    finally:
-        ej.eigh_jacobi_pallas = orig
-    assert float(jnp.median(res.f_value)) < 1e-5
-
-
 def test_fleet_bounds_projection(key):
     fn = lambda x: jnp.sum((x + 1.0) ** 2)
     bounds = Bounds(lower=jnp.zeros(2), upper=jnp.full(2, 4.0))

@@ -66,32 +66,3 @@ def test_mixed_termination_lanes(key):
     )(x0, keys)
     assert bool(jnp.all(res.iterations <= 100))
     assert bool(jnp.all(res.converged | (res.iterations == 100)))
-
-
-def test_fused_flag_requires_rotation(key):
-    cfg = DEConfig(max_iter=5, use_fused_kernel=True)  # partner_sampling="uniform"
-    x0 = jnp.tile(jnp.full((2,), -0.5), (4, 1))
-    keys = jax.random.split(key, 4)
-    state = de_batched.init(PROBLEMS["sphere"].fn, x0, cfg, keys)
-    with pytest.raises(ValueError, match="rotation"):
-        de_batched.step(PROBLEMS["sphere"].fn, state, cfg)
-
-
-@pytest.mark.skipif(
-    jax.default_backend() != "tpu",
-    reason="fused DE kernel needs pltpu.prng_seed (no CPU lowering)",
-)
-def test_fused_flag_end_to_end(key):
-    # the fused-kernel driver must solve the same fleet the XLA path does
-    p = PROBLEMS["sphere"]
-    cfg = DEConfig(
-        max_iter=150, pop_size=32, partner_sampling="rotation",
-        use_fused_kernel=True, eps=0.0, best_value_no_change=1 << 30,
-    )
-    B = 64
-    x0 = jnp.tile(jnp.full((4,), -0.5), (B, 1))
-    keys = jax.random.split(key, B)
-    res = jax.jit(
-        lambda x0, k: de_batched.minimize_batched(p.fn, x0, cfg, keys=k)
-    )(x0, keys)
-    assert float(jnp.max(res.f_value)) < 1e-3

@@ -4,8 +4,8 @@ Round-2 verdict: `jax.distributed.initialize` was wrapped but never
 executed, even CPU-emulated.  This launches TWO real OS processes, each
 with 2 virtual CPU devices, connected through a localhost coordinator
 (Gloo collectives over the 4-device global mesh), runs `minimize_islands`
-with the dp axis spanning the processes — the DCN axis of a pod-slice
-deployment — and checks the stitched global result against a
+with the dp axis spanning the processes — the cross-host axis of a
+multi-host deployment — and checks the stitched global result against a
 single-process run of the identical mesh shape: per-(instance, agent,
 iteration) streams come from fold_in, so results must not depend on how
 the mesh maps onto processes.

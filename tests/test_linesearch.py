@@ -58,7 +58,7 @@ def test_armijo_backtracks():
 
 
 def test_vmapped_linesearch():
-    # batch of line searches in one program — the TPU-batched BFGS building block
+    # batch of line searches in one program — the batched BFGS building block
     xs = jnp.stack([jnp.asarray([2.0, -3.0]), jnp.asarray([1.0, 5.0])])
     gs = jax.vmap(jax.grad(quad))(xs)
     res = jax.vmap(

@@ -1,6 +1,5 @@
 """Batch-minor NLLS fleet (solvers/nlls_fleet.py): parity with the vmapped
-scalar driver across all three solve backends, including the Pallas
-in-kernel least-squares pipeline in interpret mode."""
+scalar driver across both solve backends."""
 import jax
 import jax.numpy as jnp
 import pytest
@@ -21,13 +20,11 @@ def expfit():
     return residual, ys, amps, rates
 
 
-@pytest.mark.parametrize("solve", ["cholesky", "qr", "qr_pallas"])
+@pytest.mark.parametrize("solve", ["cholesky", "qr"])
 def test_fleet_solves_expfits(expfit, solve):
     residual, ys, amps, rates = expfit
     B = ys.shape[0]
-    cfg = nf.NLLSFleetConfig(
-        max_iter=30, solve=solve, pallas_interpret=(solve == "qr_pallas")
-    )
+    cfg = nf.NLLSFleetConfig(max_iter=30, solve=solve)
     res = jax.jit(
         lambda X: nf.fit_fleet(residual, X, cfg, data=ys)
     )(jnp.ones((2, B), jnp.float32))

@@ -3,7 +3,7 @@
 SURVEY.md §5 "failure detection": the reference's recoveries are algorithmic
 (BFGS H-reset, LM lambda escalation, linesearch bailouts, bracket guards).
 These tests drive those paths plus float32 behavior — the dtype everything
-runs in on TPU (the f64 parity tests run under x64 on CPU).
+runs in on the device (the f64 parity tests run under x64 on CPU).
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +23,7 @@ TOL = 0.05
     "name", ["sphere", "rosenbrock", "booth", "matyas", "ackley"]
 )
 def test_float32_convergence(name, key):
-    # f32 is the TPU execution dtype; parity tests run f64 — make sure the
+    # f32 is the fleets' execution dtype; parity tests run f64 — make sure the
     # algorithms don't silently depend on double precision
     p = PROBLEMS[name]
     x0 = jnp.full((p.dim,), -0.5, jnp.float32)

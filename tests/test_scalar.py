@@ -1,6 +1,7 @@
 """Brent minimizer + the seven root finders, single and vmapped batches."""
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from nlsolver_tpu.solvers import brent as brent_min
@@ -108,3 +109,23 @@ def test_brent_minimizer_vmapped():
         jax.vmap(lambda c: brent_min.minimize_scalar(lambda x: (x - c) ** 2))
     )(centers)
     assert float(jnp.max(jnp.abs(res.x - centers))) < 1e-5
+
+
+@pytest.mark.parametrize("variant", ["fixed", "reference"])
+def test_itp_float32_fleet(variant):
+    """The reference's ITP never shrinks its projection radius, so in
+    float32 a step that lands on a bracket end repeats until max_iter; the
+    default (the paper's radius eps 2^(n_max - j)) keeps ITP's
+    bisection-like worst case."""
+    cs = jnp.linspace(0.1, 7.9, 2000, dtype=jnp.float32)
+    res = jax.jit(jax.vmap(lambda c: itp(
+        lambda x: x * x * x - c, jnp.float32(0.0), jnp.float32(2.0),
+        tol=1e-7, eps=1e-7, variant=variant)))(cs)
+    exact = np.cbrt(np.asarray(cs, np.float64))
+    rel = np.abs(np.asarray(res.x, np.float64) - exact) / exact
+    if variant == "fixed":
+        assert float(rel.max()) <= 1e-6
+        assert int(jnp.max(res.iterations)) <= 30
+    else:
+        assert int(jnp.max(res.iterations)) == 200
+        assert float(rel.max()) > 1e-6

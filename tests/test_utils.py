@@ -2,6 +2,7 @@
 import os
 
 import jax
+import pytest
 import jax.numpy as jnp
 
 from nlsolver_tpu.utils import (
@@ -137,3 +138,26 @@ class TestProgressHook:
             counts.append(len(calls))
         assert counts[0] > 0 and counts[1] > 0
         assert counts[1] >= counts[0] - 1  # same cadence both runs
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_placement(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins and is left alone; without it the
+    cache is the checkout's .jax_cache (a fixed path, never a temp name)."""
+    from nlsolver_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            jax.config.update("jax_compilation_cache_dir", "sentinel")
+            assert compile_cache.enable_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == "sentinel"
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            path = compile_cache.enable_compile_cache()
+            assert path == os.path.join(root, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

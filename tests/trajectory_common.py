@@ -228,7 +228,7 @@ _ROOT_FNS = {
     "root_brent": lambda k: rootfind.brent(cubic, 1.0, 3.0, 1e-12, k),
     "root_ridders": lambda k: rootfind.ridders(cubic, 1.0, 3.0, 1e-12, 1e-12, k),
     "root_itp": lambda k: rootfind.itp(cubic, 1.0, 3.0, 0.3, 2.1, 1.0,
-                                       1e-12, 1e-12, k),
+                                       1e-12, 1e-12, k, variant="reference"),
     "root_chandrupatla": lambda k: rootfind.chandrupatla(cubic, 1.0, 3.0,
                                                          1e-10, 2e-10, k),
     "root_tiruneh": lambda k: rootfind.tiruneh(cubic, (1.0, 2.0, 3.0),

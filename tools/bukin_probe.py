@@ -16,9 +16,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/nlsolver_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from nlsolver_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp, dataclasses
 import nlsolver_tpu
 from nlsolver_tpu.core import Bounds

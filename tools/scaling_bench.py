@@ -16,14 +16,14 @@ Modes (all shard over a (dp, pop) jax.sharding.Mesh):
              ppermute migration every ``--migrate`` generations (the
              recommended production configuration).
 
-On this development box there is one real TPU chip; multi-device runs use
-virtual CPU devices (run with
+Without several GPUs, multi-device runs use virtual CPU devices (run with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` and ``--cpu``), which
-validates the harness and the sharded programs but NOT real ICI/DCN
-bandwidth — CPU "devices" share two physical cores, so measured efficiency
-is meaningless there (the harness still reports it, flagged
-``emulated: true``).  On a real slice, run one process per host with
-``jax.distributed.initialize`` (parallel/distributed.py) and the same flags.
+validates the harness and the sharded programs but no interconnect — CPU
+"devices" share the host's cores, so the efficiency printed there is
+meaningless (the harness flags it ``emulated: true``).  On a GPU host the
+same invocation without ``--cpu`` uses its cards; across hosts, run one
+process per host with ``jax.distributed.initialize``
+(parallel/distributed.py).
 
 Usage:
   python tools/scaling_bench.py --devices 1,2,4,8 --mode island \
@@ -66,7 +66,6 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from nlsolver_tpu.benches import _fetch
     from nlsolver_tpu.parallel import make_mesh
     from nlsolver_tpu.problems import PROBLEMS
     from nlsolver_tpu.solvers.de import DEConfig
@@ -123,11 +122,11 @@ def main(argv=None):
                 )
             )
 
-        _fetch(solve(x0, keys).f_value)  # compile + warm
+        jax.block_until_ready(solve(x0, keys).f_value)  # compile + warm
         times = []
         for _ in range(args.runs):
             t0 = time.perf_counter()
-            _fetch(solve(x0, keys).f_value)
+            jax.block_until_ready(solve(x0, keys).f_value)
             times.append(time.perf_counter() - t0)
         med = statistics.median(times)
         return {
